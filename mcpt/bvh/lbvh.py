@@ -2,7 +2,7 @@
 
 The reference builds its HLBVH on the host CPU (``BVH/hlbvh.cpp:92-200``): PBRT-style
 radix sort (``:27-63``) and a *sequential work-queue* construction of the Karras
-topology (``:165-188``).  On TPU the whole build runs on-device inside one jit:
+topology (``:165-188``).  Here the whole build runs on-device inside one jit:
 
 - 10-bit centroid quantization → 30-bit Morton codes — same math as
   ``hlbvh.cpp:118-136`` (×1024 quantization, 3-way bit expansion);

@@ -1,10 +1,10 @@
 """Device-side treelet SAH restructuring — the ``treeletGPU`` builder (C16).
 
-TPU-native re-design of the reference's warp-cooperative treelet kernel
+Data-parallel re-design of the reference's warp-cooperative treelet kernel
 (``kernels/treeletBVH.cl:230-531``).  The reference serializes bottom-up via
 atomic ready-flags, one warp per treelet, with ``__constant`` popcount tables
 driving the subset DP (``treeletBVH.cl:193-228``).  Neither atomics nor
-per-warp divergence map to a TPU, so the schedule is re-architected as
+per-warp divergence map to whole-array JAX ops, so the schedule is re-architected as
 **level-synchronous batched rounds**:
 
 - internal nodes are grouped by their height in the *initial* tree (equal

@@ -10,7 +10,7 @@ back to zero-values (``config.cpp:37-66`` ``tryRead``) and ``bvhtype`` defaults 
 ``#`` comments which strict JSON rejects (``config.json:90-101``); we strip them before
 parsing so the shipped file loads as-is.
 
-TPU-era extensions (all optional, zero-value defaults keep reference semantics):
+Extensions (all optional, zero-value defaults keep reference semantics):
 
 - ``integrator``: ``{"nee": bool, "mis": bool, "russian_roulette": bool,
   "rr_start_depth": int}`` — physics upgrades the reference lacks.
@@ -30,6 +30,10 @@ import json
 import os
 import re
 from typing import Any
+
+# Render engines tools/render.py can run: the Pallas megakernel (small
+# scenes), the XLA wavefront integrator, or "auto" (chosen by scene size).
+ENGINES = ("auto", "mega", "wavefront")
 
 _COMMENT_RE = re.compile(r'^(?P<prefix>(?:[^"#]|"(?:[^"\\]|\\.)*")*)#.*$')
 
@@ -117,11 +121,11 @@ class Config:
     intersect: str = ""
     shade: str = ""
     opencl: bool = False
-    # --- TPU-era extensions ---
+    # --- extensions ---
     integrator: IntegratorConfig = dataclasses.field(default_factory=IntegratorConfig)
     intersector: str = "auto"
-    # engine: "auto" picks the fused Pallas megakernel for VMEM-sized scenes,
-    # the wavefront pipeline otherwise; "mega"/"wavefront" force one.
+    # engine: one of ENGINES.  "auto" lets tools/render.py choose by scene
+    # size; "mega"/"wavefront" force one.
     engine: str = "auto"
     seed: int = 0
     spp_per_step: int = 1
@@ -144,6 +148,10 @@ class Config:
 
     @staticmethod
     def from_entry(e: dict[str, Any]) -> "Config":
+        engine = str(e.get("engine", "auto"))
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; expected one of "
+                             f"{ENGINES}")
         objname = e.get("objname", "")
         if isinstance(objname, list):
             objname = tuple(str(x) for x in objname)
@@ -165,7 +173,7 @@ class Config:
             opencl=bool(e.get("opencl", False)),
             integrator=IntegratorConfig.from_json(e.get("integrator")),
             intersector=str(e.get("intersector", "auto")),
-            engine=str(e.get("engine", "auto")),
+            engine=engine,
             seed=int(e.get("seed", 0)),
             spp_per_step=int(e.get("spp_per_step", 1)),
             mesh=dict(e.get("mesh", {})),

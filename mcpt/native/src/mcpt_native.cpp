@@ -1,6 +1,6 @@
 // mcpt native runtime helpers (C++17, C ABI for ctypes).
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the *host-side*
+// The device compute path is JAX/XLA/Pallas; this library is the *host-side*
 // native tier, covering what the reference implements natively:
 //   - Wavefront .obj/.mtl loading (replaces vendored tinyobjloader +
 //     thirdpartywrapper.cpp:25-99, same positions-only triangulation and

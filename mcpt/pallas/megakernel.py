@@ -1,31 +1,29 @@
-"""Pallas TPU megakernel: the entire path-trace loop fused into one kernel.
+"""Pallas megakernel: the entire path-trace loop fused into one GPU kernel.
 
 Where the reference runs one OpenCL kernel per stage per bounce with all ray
 state round-tripping through GPU global memory (``OpenCLApp.cpp:57-82``:
-raygen → MAXDEPTH × {intersect, shade} → accumulate), this kernel keeps a block
-of rays *entirely in VMEM* for their whole lifetime: camera ray generation,
-every intersection test, BSDF sampling, and radiance accumulation happen
-without touching HBM until the final per-ray radiance writeout.  HBM traffic
-per ray drops from ~KB (wavefront) to 12 bytes.
+raygen → MAXDEPTH × {intersect, shade} → accumulate), this kernel keeps every
+lane's path in registers for its whole lifetime: camera ray generation, every
+intersection test, BSDF sampling, and radiance accumulation happen without
+touching device memory until the final per-lane radiance write (12 bytes of
+radiance plus a segment count per lane).
 
-Scope: scenes whose triangle + material tables fit VMEM — the measured
-engine crossover vs the wavefront pipeline is ~6k triangles (tools/render.py
-auto cap; larger scenes use the wavefront + cluster-BVH path).  ≤128 tris
-runs fully unrolled; past that, the chunk-unrolled fori tier over
-Morton-sorted rows with per-chunk AABB culling.
-Intersection uses the precomputed Wald transforms (``types.WaldTris``), the
-per-triangle loop is a `fori_loop` over VMEM scalar reads, and the bounce loop
-is a `while_loop` with a block-wide any-alive early exit — the TPU analogue of
-warp-coherent termination (camera rays in a block are spatially coherent, so
-whole blocks retire early together).
+Lowered through Pallas's Triton route.  One program is a 1-D block of ``BLK``
+lanes.  The triangle, material and light tables are whole-array operands: the
+triangle loop reads each row by uniform (same-address) loads, which the L1/L2
+caches serve for scenes this engine takes, and per-lane lookups (the hit's
+normal and material row, the sampled light row) are gathers.  The triangle
+loop is a ``fori_loop`` over ``CHUNK_TRIS``-row chunks.  Past
+``CULL_MIN_TRIS`` the rows are Morton-sorted and each chunk's AABB is
+slab-tested against the whole block first: a chunk no live lane can reach is
+skipped (``lax.cond``), a one-level BVH.  The bounce loop is a ``while_loop``
+that exits once every lane of the block is done — camera rays of one block are
+spatially coherent, so blocks retire together.
 
-RNG is the native per-core PRNG (`pltpu.prng_random_bits`), seeded per
-(block, sample-batch) — replacing both the reference's LCG (``shade.cl:1-6``)
-and the wavefront path's threefry draws.
-
-Design constraints verified against this environment's Mosaic compiler: no
-boolean vectors in loop carries (f32 0/1 masks instead), fori + scalar VMEM
-reads, while_loop with f32 vector carries and an `any()` scalar condition.
+RNG is a stateless counter hash (``_u01``) of (seed, salt, global
+sample·pixel id), replacing the reference's per-pixel LCG (``shade.cl:1-6``):
+it gives the same numbers compiled and interpreted, and for every schedule and
+mesh shape, which is what makes sharded renders stream-exact.
 """
 
 from __future__ import annotations
@@ -37,38 +35,32 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from mcpt.pallas._interp import interp_mode
+from jax.experimental.pallas import triton as pl_triton
 
 from mcpt import types as T
+from mcpt.runtime import pallas_interpret
 
-# Block geometry: SUB×128 rays per grid step.
-SUB = 64
-BLK = SUB * 128
-
-_U32_TO_UNIT = 1.0 / 4294967296.0  # map uint32 → [0, 1)
-
-# tri_ref row layout (T_pad, 16):
-#   0:9  A row-major (o'_j = A[j,0]ox + A[j,1]oy + A[j,2]oz + b_j)
-#   9:12 b
-#   12:15 geometric normal (unit)
-#   15   material index (as f32)
-# matt_ref row layout (M_pad, 16), one row per MATERIAL (the hit resolve picks
-#   a material id per lane in the triangle loop, then a short loop over the
-#   much smaller material table picks the constants — 4·T + 11·M selects
-#   instead of 15·T):
-#   0:3 kd, 3:6 ks, 6:9 ka, 9 ns, 10 ni, 11 mtype (as f32)
-
-# bounce-loop lowering inside the kernel: "while" gives whole-block early exit
-# when every ray is dead; "fori" is the fallback (set by probing Mosaic support)
-_BOUNCE_LOOP = "while"
+# Lanes per program (a power of two, as Triton requires) and warps per program.
+BLK = 256
+NUM_WARPS = 4
+# Triangle rows tested per loop iteration (straight-line code inside the
+# chunk loop).  Tables are padded to a multiple with never-hit rows.
+CHUNK_TRIS = 16
+# Scenes past this size get Morton-sorted rows and per-chunk AABB culling.
+CULL_MIN_TRIS = 128
 
 _MTYPE_DIFFUSE = float(T.DIFFUSE)
 _MTYPE_GLOSSY = float(T.GLOSSY)
 _MTYPE_TRANSPARENT = float(T.TRANSPARENT)
 _MTYPE_LIGHT = float(T.LIGHT)
 
+# tri rows (T_pad, 16):  0:9 A row-major (o'_j = A[j,0]ox + A[j,1]oy +
+#   A[j,2]oz + b_j), 9:12 b, 12:15 unit geometric normal, 15 material index.
+# matt rows (M, 16), one per material: 0:3 kd, 3:6 ks, 6:9 ka, 9 ns, 10 ni,
+#   11 mtype.
+# lit rows (L, 16), one per emissive triangle: 0:3 v0, 3:6 e1, 6:9 e2,
+#   9:12 emission, 12:15 unit normal, 15 area CDF.
+# cbox rows (T_pad / CHUNK_TRIS, 8): 0:3 chunk AABB min, 3:6 max.
 
 # murmur3 fmix32 constants as wrapped int32 literals (numpy scalars, NOT jax
 # arrays — jax arrays at module scope become captured consts in pallas kernels)
@@ -90,18 +82,31 @@ def _fmix32(h):
 def _u01(seed, salt, idx):
     """Counter-based uniform in [0, 1): hash of (seed, salt, ray index).
 
-    A stateless per-lane RNG in plain vector int ops — platform-independent
-    (works identically compiled and interpreted; ``pltpu.prng_random_bits``
-    returns zeros under the interpreter), stateless like threefry, and far
-    cheaper.  Replaces the reference's per-pixel LCG (``shade.cl:1-6``)."""
+    A stateless per-lane RNG in plain vector int ops: platform-independent,
+    stateless like threefry, and far cheaper.  Replaces the reference's
+    per-pixel LCG (``shade.cl:1-6``)."""
     h = _fmix32(seed + salt * _GR)
     h = _fmix32(jnp.bitwise_xor(idx * _GR, h))
     mant = jnp.bitwise_and(h, 0x7FFFFF)
     return mant.astype(jnp.float32) * (1.0 / 8388608.0)
 
 
+def _where(c, a, b):
+    """``jnp.where`` with Python-scalar branches made f32/i32 arrays first:
+    the Triton lowering of ``select_n`` gives a weakly typed scalar branch the
+    predicate's (boolean) type."""
+    def typed(v):
+        if isinstance(v, float):
+            return np.float32(v)
+        if isinstance(v, int):
+            return np.int32(v)
+        return v
+
+    return jnp.where(c, typed(a), typed(b))
+
+
 def _pow(x, n):
-    """x**n for x ∈ (0, 1], vector n — exp/log form (Mosaic-friendly)."""
+    """x**n for x ∈ (0, 1], vector n — exp/log form."""
     return jnp.exp(n * jnp.log(jnp.maximum(x, 1e-12)))
 
 
@@ -112,7 +117,7 @@ def _normalize3(x, y, z):
 
 def _onb(nx, ny, nz):
     """Branchless ONB (Duff et al.) — vector form of shade.build_onb."""
-    s = jnp.where(nz >= 0.0, 1.0, -1.0)
+    s = _where(nz >= 0.0, 1.0, -1.0)
     a = -1.0 / (s + nz)
     b = nx * ny * a
     t1x = 1.0 + s * nx * nx * a
@@ -124,344 +129,148 @@ def _onb(nx, ny, nz):
     return (t1x, t1y, t1z), (t2x, t2y, t2z)
 
 
-# Scenes up to this size get a triangle-unrolled kernel specialization: all
-# per-triangle scalars are read from VMEM ONCE before the bounce loop (they are
-# loop-invariant) and the intersect/resolve loops are fully unrolled — per-
-# iteration scalar loads inside the hot loop are the dominant cost otherwise.
-UNROLL_MAX_TRIS = 128
-# Scenes past the full-unroll cap run fori triangle loops; unrolling
-# CHUNK_TRIS tests per iteration keeps the scalar core prefetching rows ahead
-# of the VPU (the same straight-line-code effect as the full unroll) at
-# 1/CHUNK_TRIS of the loop-carry overhead, with code size bounded.  Triangle
-# tables are padded to a CHUNK_TRIS multiple with never-hit rows.
-CHUNK_TRIS = 16
+def _safe_inv(d):
+    tiny = 1e-30
+    return 1.0 / _where(jnp.abs(d) < tiny, _where(d < 0.0, -tiny, tiny), d)
 
 
-def _make_render_kernel(static_tris: int | None, static_mats: int | None,
-                        use_nee: bool, use_mis: bool, static_lights: int,
-                        regen: bool, n_tris_pad: int,
-                        count_rows: bool = False):
-    if count_rows:
-        # instrumented variant: one extra output accumulating live-lane
-        # triangle-row tests in the culled fori tier (the honest flop count
-        # behind bench.py's mfu_veach — the static 44·T_rows model is an
-        # upper bound by the chunk-cull skip rate)
-        def kernel(si_ref, sf_ref, tri_ref, matt_ref, lit_ref, cb_ref, r_ref,
-                   g_ref, b_ref, seg_ref, trow_ref, bt_ref, bi_ref, occ_ref):
-            make = functools.partial(
-                _make_tri_intersectors, static_tris, n_tris_pad, tri_ref,
-                cb_ref, bt_ref, bi_ref, occ_ref, trow_ref,
-            )
-            return _render_body(static_mats, use_nee, use_mis, static_lights,
-                                regen, SUB, make, None, si_ref, sf_ref,
-                                matt_ref, lit_ref, r_ref, g_ref, b_ref,
-                                seg_ref)
+def _tri_test(tri_ref, t, ox, oy, oz, dx, dy, dz):
+    """Wald unit-triangle test of row ``t`` → (t_hit, inside-triangle mask)."""
+    c = [tri_ref[t, j] for j in range(12)]
+    opz = c[6] * ox + c[7] * oy + c[8] * oz + c[11]
+    dpz = c[6] * dx + c[7] * dy + c[8] * dz
+    th = -opz / dpz
+    opx = c[0] * ox + c[1] * oy + c[2] * oz + c[9]
+    dpx = c[0] * dx + c[1] * dy + c[2] * dz
+    u = opx + th * dpx
+    opy = c[3] * ox + c[4] * oy + c[5] * oz + c[10]
+    dpy = c[3] * dx + c[4] * dy + c[5] * dz
+    v = opy + th * dpy
+    return th, (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
 
-        return kernel
 
-    def kernel(si_ref, sf_ref, tri_ref, matt_ref, lit_ref, cb_ref, r_ref,
-               g_ref, b_ref, seg_ref, bt_ref, bi_ref, occ_ref):
-        make = functools.partial(
-            _make_tri_intersectors, static_tris, n_tris_pad, tri_ref, cb_ref,
-            bt_ref, bi_ref, occ_ref, None,
+def _make_intersectors(tri_ref, cb_ref, n_chunks, cull, t_min):
+    """Closest-hit and any-hit queries over the dense triangle table.
+
+    ``closest(o…, d…, alive, rows) -> (best_t, nx, ny, nz, mat_id, rows)``
+    with ``best_t == 3e38`` on a miss; ``occluded(o…, d…, limit, cand, rows)
+    -> (occ, rows)`` with an f32 occlusion mask.  ``rows`` accumulates the
+    live-lane triangle rows actually tested (the counter behind
+    ``render_mega(count_rows=True)``)."""
+
+    def box_hit(ci, ox, oy, oz, ivx, ivy, ivz, t_hi):
+        t0x = (cb_ref[ci, 0] - ox) * ivx
+        t1x = (cb_ref[ci, 3] - ox) * ivx
+        t0y = (cb_ref[ci, 1] - oy) * ivy
+        t1y = (cb_ref[ci, 4] - oy) * ivy
+        t0z = (cb_ref[ci, 2] - oz) * ivz
+        t1z = (cb_ref[ci, 5] - oz) * ivz
+        tn = jnp.maximum(
+            jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
+            jnp.minimum(t0z, t1z),
         )
-        return _render_body(static_mats, use_nee, use_mis, static_lights,
-                            regen, SUB, make, None, si_ref, sf_ref, matt_ref,
-                            lit_ref, r_ref, g_ref, b_ref, seg_ref)
+        tf = jnp.minimum(
+            jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
+            jnp.maximum(t0z, t1z),
+        )
+        return (tf >= jnp.maximum(tn, 0.0)) & (tn < t_hi)
 
-    return kernel
+    def chunk_loop(test_chunk, live_of, box_args, t_hi_of, state, rows):
+        """Run ``test_chunk`` over every chunk; with culling, skip a chunk
+        unless its box straddles some live lane's open segment."""
+        if not cull:
+            def body(ci, carry):
+                st, rows = carry
+                return test_chunk(ci, st), rows + live_of(st) * float(
+                    CHUNK_TRIS)
 
+            return jax.lax.fori_loop(0, n_chunks, body, (state, rows))
 
-def _make_tri_intersectors(static_tris, n_tris_pad, tri_ref, cb_ref, bt_ref,
-                           bi_ref, occ_ref, trow_ref, zeros, row, col, t_min):
-    """The megakernel's dense triangle-table intersectors (see
-    ``_render_body``'s ``make_intersectors`` contract): a fully-unrolled tier
-    for ≤``UNROLL_MAX_TRIS`` scenes, else chunk-unrolled fori loops over
-    Morton-sorted rows with per-chunk AABB culling.  The cluster-BVH engine
-    (``mcpt.pallas.cluster_megakernel``) plugs a tree walk into the same
-    contract instead."""
-    # hoisted loop-invariant per-triangle scalars (unrolled specialization)
-    if static_tris is not None:
-        tri_c = [[tri_ref[t, j] for j in range(16)] for t in range(static_tris)]
-    if trow_ref is not None:
-        trow_ref[:] = zeros  # live-lane row tests (instrumented builds only)
+        def body(ci, carry):
+            st, rows = carry
+            live = live_of(st)
+            reach = box_hit(ci, *box_args, t_hi_of(st)) & (live > 0.0)
+            run = jnp.max(_where(reach, 1.0, 0.0)) > 0.0
+            st = jax.lax.cond(run, lambda s: test_chunk(ci, s), lambda s: s,
+                              st)
+            return st, rows + _where(run, live * float(CHUNK_TRIS), 0.0)
 
-    def closest(ox, oy, oz, dx, dy, dz, alive):
-        def tri_body(t, acc):
-            bt, bi = acc
-            a00 = tri_ref[t, 0]
-            a01 = tri_ref[t, 1]
-            a02 = tri_ref[t, 2]
-            a10 = tri_ref[t, 3]
-            a11 = tri_ref[t, 4]
-            a12 = tri_ref[t, 5]
-            a20 = tri_ref[t, 6]
-            a21 = tri_ref[t, 7]
-            a22 = tri_ref[t, 8]
-            b0 = tri_ref[t, 9]
-            b1 = tri_ref[t, 10]
-            b2 = tri_ref[t, 11]
-            opz = a20 * ox + a21 * oy + a22 * oz + b2
-            dpz = a20 * dx + a21 * dy + a22 * dz
-            th = -opz / dpz
-            opx = a00 * ox + a01 * oy + a02 * oz + b0
-            dpx = a00 * dx + a01 * dy + a02 * dz
-            u = opx + th * dpx
-            opy = a10 * ox + a11 * oy + a12 * oz + b1
-            dpy = a10 * dx + a11 * dy + a12 * dz
-            v = opy + th * dpy
-            ok = (
-                (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (th > t_min) & (th < bt)
-            )
-            bt = jnp.where(ok, th, bt)
-            bi = jnp.where(ok, t, bi)
+        return jax.lax.fori_loop(0, n_chunks, body, (state, rows))
+
+    def closest(ox, oy, oz, dx, dy, dz, alive, rows):
+        def test_chunk(ci, st):
+            bt, bi = st
+            for j in range(CHUNK_TRIS):
+                t = ci * CHUNK_TRIS + j
+                th, inside = _tri_test(tri_ref, t, ox, oy, oz, dx, dy, dz)
+                ok = inside & (th > t_min) & (th < bt)
+                bt = _where(ok, th, bt)
+                bi = _where(ok, t, bi)
             return bt, bi
 
-        def tri_body_unrolled(t, acc):
-            bt, bi = acc
-            c = tri_c[t]
-            opz = c[6] * ox + c[7] * oy + c[8] * oz + c[11]
-            dpz = c[6] * dx + c[7] * dy + c[8] * dz
-            th = -opz / dpz
-            opx = c[0] * ox + c[1] * oy + c[2] * oz + c[9]
-            dpx = c[0] * dx + c[1] * dy + c[2] * dz
-            u = opx + th * dpx
-            opy = c[3] * ox + c[4] * oy + c[5] * oz + c[10]
-            dpy = c[3] * dx + c[4] * dy + c[5] * dz
-            v = opy + th * dpy
-            ok = (
-                (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (th > t_min) & (th < bt)
-            )
-            return jnp.where(ok, th, bt), jnp.where(ok, t, bi)
+        init = (jnp.full(ox.shape, 3.0e38, jnp.float32),
+                jnp.zeros(ox.shape, jnp.int32))
+        box_args = (ox, oy, oz, _safe_inv(dx), _safe_inv(dy), _safe_inv(dz))
+        (best_t, best_i), rows = chunk_loop(
+            test_chunk, lambda st: alive, box_args, lambda st: st[0], init,
+            rows)
+        # per-lane gathers of the winning row (a miss reads row 0; every use
+        # of these values is masked by the hit test)
+        nx = tri_ref[best_i, 12]
+        ny = tri_ref[best_i, 13]
+        nz = tri_ref[best_i, 14]
+        mid = tri_ref[best_i, 15].astype(jnp.int32)
+        return best_t, nx, ny, nz, mid, rows
 
-        init_ti = (zeros + 3.0e38, (row + col) * 0)
-        if static_tris is not None:
-            acc = init_ti
-            for t in range(static_tris):
-                acc = tri_body_unrolled(t, acc)
-            best_t, best_i = acc
-        else:
-            # chunk-unrolled loop with AABB culling: rows are Morton-sorted
-            # (build_megascene), so each CHUNK_TRIS-row chunk has a tight box
-            # (cb_ref).  Slab-test the box against the whole block pruned by
-            # the running best_t, and pl.when-skip the 16 straight-line tests
-            # when no live lane can improve — the fori-tier analogue of a
-            # one-level BVH.  Pad rows are never-hit; hit state lives in
-            # scratch refs so the skipped branch mutates nothing.
-            tiny = 1e-30
-            ivx = 1.0 / jnp.where(jnp.abs(dx) < tiny,
-                                  jnp.where(dx < 0.0, -tiny, tiny), dx)
-            ivy = 1.0 / jnp.where(jnp.abs(dy) < tiny,
-                                  jnp.where(dy < 0.0, -tiny, tiny), dy)
-            ivz = 1.0 / jnp.where(jnp.abs(dz) < tiny,
-                                  jnp.where(dz < 0.0, -tiny, tiny), dz)
-            alive_m = alive > 0.0
-            bt_ref[:] = zeros + 3.0e38
-            bi_ref[:] = (row + col) * 0
-
-            def tri_chunk(c, carry):
-                t0x = (cb_ref[c, 0] - ox) * ivx
-                t1x = (cb_ref[c, 3] - ox) * ivx
-                t0y = (cb_ref[c, 1] - oy) * ivy
-                t1y = (cb_ref[c, 4] - oy) * ivy
-                t0z = (cb_ref[c, 2] - oz) * ivz
-                t1z = (cb_ref[c, 5] - oz) * ivz
-                tn = jnp.maximum(
-                    jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-                    jnp.minimum(t0z, t1z),
-                )
-                tf = jnp.minimum(
-                    jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-                    jnp.maximum(t0z, t1z),
-                )
-                hitc = ((tf >= jnp.maximum(tn, 0.0)) & (tn < bt_ref[:])
-                        & alive_m)
-
-                @pl.when(jnp.any(hitc))
-                def _():
-                    acc = (bt_ref[:], bi_ref[:])
-                    base = c * CHUNK_TRIS
-                    for j in range(CHUNK_TRIS):
-                        acc = tri_body(base + j, acc)
-                    bt_ref[:] = acc[0]
-                    bi_ref[:] = acc[1]
-                    if trow_ref is not None:
-                        trow_ref[:] = trow_ref[:] + alive * float(CHUNK_TRIS)
-
-                return carry
-
-            jax.lax.fori_loop(0, n_tris_pad // CHUNK_TRIS, tri_chunk,
-                              jnp.int32(0))
-            best_t, best_i = bt_ref[:], bi_ref[:]
-
-        # ---- resolve: normal + material id from the best triangle row ----
-        def res_tri(t, acc, c):
-            sel = best_i == t
-            return (
-                jnp.where(sel, c[12], acc[0]),
-                jnp.where(sel, c[13], acc[1]),
-                jnp.where(sel, c[14], acc[2]),
-                jnp.where(sel, c[15], acc[3]),
-            )
-
-        init_res = (zeros, zeros, zeros, zeros)
-        if static_tris is not None:
-            resolved = init_res
-            for t in range(static_tris):
-                resolved = res_tri(t, resolved, tri_c[t])
-        else:
-            # chunk-unrolled like the intersect loop (pad rows are never the
-            # best hit, so matching against them is a no-op)
-            def res_chunk(c, acc):
-                base = c * CHUNK_TRIS
-                for j in range(CHUNK_TRIS):
-                    t = base + j
-                    acc = res_tri(t, acc, [tri_ref[t, k] for k in range(16)])
-                return acc
-
-            resolved = jax.lax.fori_loop(
-                0, n_tris_pad // CHUNK_TRIS, res_chunk, init_res
-            )
-        nx, ny, nz, mid = resolved
-        return best_t, nx, ny, nz, mid
-
-    def occluded(sox, soy, soz, iwx, iwy, iwz, limit, cand):
-        def shadow_test(c):
-            opz = c[6] * sox + c[7] * soy + c[8] * soz + c[11]
-            dpz = c[6] * iwx + c[7] * iwy + c[8] * iwz
-            th = -opz / dpz
-            opx = c[0] * sox + c[1] * soy + c[2] * soz + c[9]
-            dpx = c[0] * iwx + c[1] * iwy + c[2] * iwz
-            u = opx + th * dpx
-            opy = c[3] * sox + c[4] * soy + c[5] * soz + c[10]
-            dpy = c[3] * iwx + c[4] * iwy + c[5] * iwz
-            v = opy + th * dpy
-            return ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                    & (th > t_min) & (th < limit))
-
-        occ = zeros
-        if static_tris is not None:
-            for t in range(static_tris):
-                occ = jnp.maximum(
-                    occ, shadow_test(tri_c[t]).astype(jnp.float32)
-                )
+    def occluded(sox, soy, soz, iwx, iwy, iwz, limit, cand, rows):
+        def test_chunk(ci, occ):
+            for j in range(CHUNK_TRIS):
+                th, inside = _tri_test(tri_ref, ci * CHUNK_TRIS + j, sox, soy,
+                                       soz, iwx, iwy, iwz)
+                occ = jnp.maximum(occ, _where(
+                    inside & (th > t_min) & (th < limit), 1.0, 0.0))
             return occ
 
-        # chunk culling for shadow rays, doubly pruned: a chunk is skipped
-        # unless its box straddles some candidate lane's unoccluded segment
-        # (t ∈ (0, limit)) — occluded lanes stop widening the union, so
-        # blocks that occlude early skip the rest of the table
-        tiny = 1e-30
-        isx = 1.0 / jnp.where(jnp.abs(iwx) < tiny,
-                              jnp.where(iwx < 0.0, -tiny, tiny), iwx)
-        isy = 1.0 / jnp.where(jnp.abs(iwy) < tiny,
-                              jnp.where(iwy < 0.0, -tiny, tiny), iwy)
-        isz = 1.0 / jnp.where(jnp.abs(iwz) < tiny,
-                              jnp.where(iwz < 0.0, -tiny, tiny), iwz)
-        occ_ref[:] = zeros
+        # a lane stops widening the box test once it is occluded, so blocks
+        # that occlude early skip the rest of the table
+        def live_of(occ):
+            return _where(cand & (occ < 0.5), 1.0, 0.0)
 
-        def sh_chunk(ci, carry):
-            t0x = (cb_ref[ci, 0] - sox) * isx
-            t1x = (cb_ref[ci, 3] - sox) * isx
-            t0y = (cb_ref[ci, 1] - soy) * isy
-            t1y = (cb_ref[ci, 4] - soy) * isy
-            t0z = (cb_ref[ci, 2] - soz) * isz
-            t1z = (cb_ref[ci, 5] - soz) * isz
-            tn = jnp.maximum(
-                jnp.maximum(jnp.minimum(t0x, t1x),
-                            jnp.minimum(t0y, t1y)),
-                jnp.minimum(t0z, t1z),
-            )
-            tf = jnp.minimum(
-                jnp.minimum(jnp.maximum(t0x, t1x),
-                            jnp.maximum(t0y, t1y)),
-                jnp.maximum(t0z, t1z),
-            )
-            seg_live = cand & (occ_ref[:] < 0.5)
-            hitc = ((tf >= jnp.maximum(tn, 0.0)) & (tn < limit)
-                    & seg_live)
-
-            @pl.when(jnp.any(hitc))
-            def _():
-                o = occ_ref[:]
-                base = ci * CHUNK_TRIS
-                for j in range(CHUNK_TRIS):
-                    c = [tri_ref[base + j, k] for k in range(12)]
-                    o = jnp.maximum(
-                        o, shadow_test(c).astype(jnp.float32)
-                    )
-                occ_ref[:] = o
-                if trow_ref is not None:
-                    trow_ref[:] = (trow_ref[:]
-                                   + seg_live.astype(jnp.float32)
-                                   * float(CHUNK_TRIS))
-
-            return carry
-
-        jax.lax.fori_loop(0, n_tris_pad // CHUNK_TRIS, sh_chunk,
-                          jnp.int32(0))
-        return occ_ref[:]
+        box_args = (sox, soy, soz, _safe_inv(iwx), _safe_inv(iwy),
+                    _safe_inv(iwz))
+        return chunk_loop(test_chunk, live_of, box_args, lambda occ: limit,
+                          jnp.zeros(sox.shape, jnp.float32), rows)
 
     return closest, occluded
 
 
-def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
-                      si_ref, sf_ref, matt_ref, lit_ref,
-                      closest_fn, occluded_fn, zeros, seed):
-    """One path-trace bounce as a reusable closure over the engine's
-    intersectors and tables: intersect → material resolve → emission (with
+def _make_bounce_core(use_nee, use_mis, n_lights, si_ref, sf_ref, matt_ref,
+                      lit_ref, closest_fn, occluded_fn, seed):
+    """One path-trace bounce: intersect → material lookup → emission (with
     MIS discount) → BSDF sample → NEE shadow → transparent → next ray →
     termination → Russian roulette.  ``core(st, salt0, pidx, depth_ok,
-    rr_on) -> st`` where ``st = (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr,
-    rg, rb, alive, inside, segs, prev_sc, prev_pdf)`` and the four extra
-    args carry the schedule-specific RNG coordinates and depth/RR gates.
-    Shared verbatim by the megakernel's in-kernel bounce loop (both
-    schedules) and the hybrid fused-bounce pipeline
-    (``cluster_megakernel.fused_bounce``), so all three compute the same
-    estimator by construction."""
-    if static_mats is not None:
-        mat_c = [[matt_ref[m, j] for j in range(12)]
-                 for m in range(static_mats)]
-    unroll_lights = use_nee and static_lights <= 16
-    if unroll_lights:
-        lit_c = [[lit_ref[t, j] for j in range(16)]
-                 for t in range(static_lights)]
+    rr_on) -> st`` where ``st = (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg,
+    rb, alive, inside, segs, prev_sc, prev_pdf, rows)`` and the four extra
+    args carry the schedule-specific RNG coordinates and depth/RR gates."""
     if use_nee:
         area_l = sf_ref[16]
     eps = sf_ref[14]
+    clampv = _where(sf_ref[18] > 0.0, sf_ref[18], jnp.float32(3.0e38))
 
     def core(st, salt0, pidx, depth_ok, rr_on):
         (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive, inside,
-         segs, prev_sc, prev_pdf) = st
-        # ---- intersect + resolve: engine-specific closest-hit query ----
-        best_t, nx, ny, nz, mid = closest_fn(ox, oy, oz, dx, dy, dz, alive)
+         segs, prev_sc, prev_pdf, rows) = st
+        best_t, nx, ny, nz, mid, rows = closest_fn(ox, oy, oz, dx, dy, dz,
+                                                   alive, rows)
         hit = (best_t < 3.0e38) & (alive > 0.0)
         segs = segs + alive
 
-        # ---- material constants from the (small) material table ----
-        def res_mat(m, acc, c):
-            sel = mid == m  # mid carries the material index as f32
-            return tuple(jnp.where(sel, c[j], acc[j]) for j in range(12))
-
-        init_mat = tuple(zeros for _ in range(12))
-        if static_mats is not None:
-            matv = init_mat
-            for m in range(static_mats):
-                matv = res_mat(float(m), matv, mat_c[m])
-        else:
-            matv = jax.lax.fori_loop(
-                0, si_ref[8],
-                lambda m, acc: res_mat(m.astype(jnp.float32), acc,
-                                       [matt_ref[m, j] for j in range(12)]),
-                init_mat,
-            )
-        (kdx, kdy, kdz, ksx, ksy, ksz, kax, kay, kaz, ns_, ni_, mtype) = matv
+        (kdx, kdy, kdz, ksx, ksy, ksz, kax, kay, kaz, ns_, ni_, mtype) = (
+            matt_ref[mid, j] for j in range(12))
 
         # flip normal to face the ray (intersect.cl:23-25)
         ndotd = nx * dx + ny * dy + nz * dz
-        flip = jnp.where(ndotd < 0.0, 1.0, -1.0)
+        flip = _where(ndotd < 0.0, 1.0, -1.0)
         nx = nx * flip
         ny = ny * flip
         nz = nz * flip
@@ -478,7 +287,7 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
         # ---- LIGHT: gather emission, terminate (shade.cl:155-158).  With NEE
         # the emission after a reflective bounce is MIS-discounted (or dropped
         # entirely without MIS) against the light-sampling pdf. ----
-        lmask = is_lite.astype(jnp.float32)
+        lmask = _where(is_lite, 1.0, 0.0)
         if use_nee:
             cos_lh = jnp.abs(ndotd)  # raw-normal · d
             pdf_lh = best_t * best_t / jnp.maximum(cos_lh * area_l, 1e-12)
@@ -488,12 +297,11 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
                 rat = pdf_lh / jnp.maximum(prev_pdf, 1e-12)
                 w_hit = 1.0 / (1.0 + rat * rat)
             else:
-                w_hit = zeros
+                w_hit = 0.0
             e_scale = 1.0 - prev_sc * (1.0 - w_hit)
             lmask = lmask * e_scale
         # optional per-contribution clamp (sf[18]; 0 disables): suppresses
-        # fireflies at the cost of documented bias (scalar-scalar where is safe)
-        clampv = jnp.where(sf_ref[18] > 0.0, sf_ref[18], jnp.float32(3.0e38))
+        # fireflies at the cost of documented bias
         rr = rr + jnp.minimum(lmask * tr * kax, clampv)
         rg = rg + jnp.minimum(lmask * tg * kay, clampv)
         rb = rb + jnp.minimum(lmask * tb * kaz, clampv)
@@ -526,9 +334,9 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
         wpz = sin_a * cphi * p1z + sin_a * sphi * p2z + cos_a * mdz
 
         pick_phong = is_glos & (u3 < 0.5)
-        sxd = jnp.where(pick_phong, wpx, wdx)
-        syd = jnp.where(pick_phong, wpy, wdy)
-        szd = jnp.where(pick_phong, wpz, wdz)
+        sxd = _where(pick_phong, wpx, wdx)
+        syd = _where(pick_phong, wpy, wdy)
+        szd = _where(pick_phong, wpz, wdz)
 
         cos_i = sxd * nx + syd * ny + szd * nz
         up_ok = cos_i > 0.0
@@ -545,55 +353,25 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
         wgy = (kdy * (1.0 / jnp.pi) + ksy * phong_f) * scale_g
         wgz = (kdz * (1.0 / jnp.pi) + ksz * phong_f) * scale_g
         # diffuse weight = kd
-        wrx = jnp.where(is_glos, wgx, kdx)
-        wry = jnp.where(is_glos, wgy, kdy)
-        wrz = jnp.where(is_glos, wgz, kdz)
-        ok_f = jnp.where(up_ok, 1.0, 0.0)
-        wrx = wrx * ok_f
-        wry = wry * ok_f
-        wrz = wrz * ok_f
+        ok_f = _where(up_ok, 1.0, 0.0)
+        wrx = _where(is_glos, wgx, kdx) * ok_f
+        wry = _where(is_glos, wgy, kdy) * ok_f
+        wrz = _where(is_glos, wgz, kdz) * ok_f
 
-        if use_nee and static_lights > 0:
+        if use_nee and n_lights > 0:
             # ---- next-event estimation: sample the light area, cast a shadow
             # ray, add the MIS-weighted direct contribution (the reference has
-            # no NEE; this is the north-star upgrade, SURVEY §7) ----
+            # no NEE) ----
             ul = _u01(seed, salt0 + 5, pidx)
             ua = _u01(seed, salt0 + 6, pidx)
             ub = _u01(seed, salt0 + 7, pidx)
-            # area-proportional light pick via the CDF
-            if unroll_lights:
-                lsel = [zeros for _ in range(15)]
-                prev_cdf = 0.0
-                for li in range(static_lights):
-                    c = lit_c[li]
-                    in_bin = (ul >= prev_cdf) & (ul < c[15]) if li > 0 else (
-                        ul < c[15]
-                    )
-                    if li == static_lights - 1:
-                        in_bin = in_bin | (ul >= c[15])  # numeric tail
-                    for j in range(15):
-                        lsel[j] = jnp.where(in_bin, c[j], lsel[j])
-                    prev_cdf = c[15]
-            else:
-                # many lights: fori with f32 carries (prev-cdf is a scalar)
-                def lp_body(li, acc):
-                    prev_cdf = acc[15]
-                    cdf_li = lit_ref[li, 15]
-                    in_bin = (ul >= prev_cdf) & (ul < cdf_li)
-                    out = tuple(
-                        jnp.where(in_bin, lit_ref[li, j], acc[j])
-                        for j in range(15)
-                    )
-                    return out + (cdf_li,)
-
-                acc0 = tuple(zeros for _ in range(15)) + (jnp.float32(-1.0),)
-                lp = jax.lax.fori_loop(0, si_ref[9], lp_body, acc0)
-                lsel = list(lp[:15])
-                # numeric tail (ul ≥ last cdf): redo last light via mask
-                last = si_ref[9] - 1
-                tail = ul >= lit_ref[last, 15]
-                for j in range(15):
-                    lsel[j] = jnp.where(tail, lit_ref[last, j], lsel[j])
+            # area-proportional light pick: the CDF bin holding ul
+            li = jax.lax.fori_loop(
+                0, n_lights - 1,
+                lambda i, acc: acc + _where(ul >= lit_ref[i, 15], 1, 0),
+                jnp.zeros(ul.shape, jnp.int32),
+            )
+            lsel = [lit_ref[li, j] for j in range(15)]
             su_ = jnp.sqrt(ua)
             b1 = su_ * (1.0 - ub)
             b2 = su_ * ub
@@ -614,7 +392,7 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
             # reflective BSDF toward the light + its sampling pdf (for MIS)
             cos_ar2 = jnp.maximum(iwx * mdx + iwy * mdy + iwz * mdz, 0.0)
             pw2 = _pow(cos_ar2, ns_)
-            gmask = is_glos.astype(jnp.float32)
+            gmask = _where(is_glos, 1.0, 0.0)
             fx_ = kdx * (1.0 / jnp.pi) + gmask * ksx * (ns_ + 2.0) * inv_2pi * pw2
             fy_ = kdy * (1.0 / jnp.pi) + gmask * ksy * (ns_ + 2.0) * inv_2pi * pw2
             fz_ = kdz * (1.0 / jnp.pi) + gmask * ksz * (ns_ + 2.0) * inv_2pi * pw2
@@ -624,28 +402,29 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
             )
             cand = (is_diff | is_glos) & (cos_s > 0.0) & (cos_l > 1e-6)
             # shadow ray: any hit closer than the light point blocks it
-            # (engine-specific any-hit query)
             sox = hx + eps * iwx
             soy = hy + eps * iwy
             soz = hz + eps * iwz
             limit = dist - 2.0 * eps
-            occ = occluded_fn(sox, soy, soz, iwx, iwy, iwz, limit, cand)
+            occ, rows = occluded_fn(sox, soy, soz, iwx, iwy, iwz, limit, cand,
+                                    rows)
 
-            vis = cand.astype(jnp.float32) * (1.0 - occ)
-            segs = segs + cand.astype(jnp.float32)
+            cand_f = _where(cand, 1.0, 0.0)
+            vis = cand_f * (1.0 - occ)
+            segs = segs + cand_f
             if use_mis:
                 rat2 = pdf_b2 / jnp.maximum(pdf_sa, 1e-12)
                 w_nee = 1.0 / (1.0 + rat2 * rat2)  # ratio form, see above
             else:
-                w_nee = zeros + 1.0
+                w_nee = 1.0
             gain = vis * (cos_s * w_nee / jnp.maximum(pdf_sa, 1e-12))
             rr = rr + jnp.minimum(tr * fx_ * lsel[9] * gain, clampv)
             rg = rg + jnp.minimum(tg * fy_ * lsel[10] * gain, clampv)
             rb = rb + jnp.minimum(tb * fz_ * lsel[11] * gain, clampv)
 
         # ---- transparent: Schlick coin between refraction and mirror ----
-        eta_i = jnp.where(inside > 0.0, ni_, 1.0)
-        eta_t = jnp.where(inside > 0.0, 1.0, ni_)
+        eta_i = _where(inside > 0.0, ni_, 1.0)
+        eta_t = _where(inside > 0.0, 1.0, ni_)
         eta = eta_i / eta_t
         n_dot_i = -(nx * dx + ny * dy + nz * dz)
         k_ = 1.0 - eta * eta * (1.0 - n_dot_i * n_dot_i)
@@ -655,273 +434,233 @@ def _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
         tyd = (eta * n_dot_i - sq) * ny + eta * dy
         tzd = (eta * n_dot_i - sq) * nz + eta * dz
         txd, tyd, tzd = _normalize3(txd, tyd, tzd)
-        cos_for_f = jnp.where(
+        cos_for_f = _where(
             eta_i <= eta_t, n_dot_i, -(txd * nx + tyd * ny + tzd * nz)
         )
-        r0 = ((ni_ - 1.0) / (ni_ + 1.0)) ** 2
+        r0 = (ni_ - 1.0) / (ni_ + 1.0)
+        r0 = r0 * r0
         one_m = jnp.clip(1.0 - jnp.abs(cos_for_f), 0.0, 1.0)
         p5 = one_m * one_m
         p5 = p5 * p5 * one_m
         fresnel = r0 + (1.0 - r0) * p5
         coin_refl = u4 < fresnel
         do_refr = is_tran & (~tir) & (~coin_refl)
-        refrf = do_refr.astype(jnp.float32)
-        ttx = jnp.where(do_refr, txd, mdx)
-        tty = jnp.where(do_refr, tyd, mdy)
-        ttz = jnp.where(do_refr, tzd, mdz)
-        w_tran = jnp.where(do_refr, eta * eta, 1.0)
-        inside = jnp.where(is_tran, (1.0 - inside) * refrf + inside * (1.0 - refrf),
+        refrf = _where(do_refr, 1.0, 0.0)
+        ttx = _where(do_refr, txd, mdx)
+        tty = _where(do_refr, tyd, mdy)
+        ttz = _where(do_refr, tzd, mdz)
+        w_tran = _where(do_refr, eta * eta, 1.0)
+        inside = _where(is_tran,
+                           (1.0 - inside) * refrf + inside * (1.0 - refrf),
                            inside)
 
         # ---- compose next ray ----
-        ndx = jnp.where(is_tran, ttx, sxd)
-        ndy = jnp.where(is_tran, tty, syd)
-        ndz = jnp.where(is_tran, ttz, szd)
-        wx = jnp.where(is_tran, w_tran, wrx)
-        wy = jnp.where(is_tran, w_tran, wry)
-        wz = jnp.where(is_tran, w_tran, wrz)
+        ndx = _where(is_tran, ttx, sxd)
+        ndy = _where(is_tran, tty, syd)
+        ndz = _where(is_tran, ttz, szd)
+        wx = _where(is_tran, w_tran, wrx)
+        wy = _where(is_tran, w_tran, wry)
+        wz = _where(is_tran, w_tran, wrz)
         scatterish = is_diff | is_glos | is_tran
-        smask = scatterish.astype(jnp.float32)
+        smask = _where(scatterish, 1.0, 0.0)
         tr = tr * (wx * smask + (1.0 - smask))
         tg = tg * (wy * smask + (1.0 - smask))
         tb = tb * (wz * smask + (1.0 - smask))
 
-        ox = jnp.where(scatterish, hx + eps * ndx, ox)
-        oy = jnp.where(scatterish, hy + eps * ndy, oy)
-        oz = jnp.where(scatterish, hz + eps * ndz, oz)
-        dx = jnp.where(scatterish, ndx, dx)
-        dy = jnp.where(scatterish, ndy, dy)
-        dz = jnp.where(scatterish, ndz, dz)
+        ox = _where(scatterish, hx + eps * ndx, ox)
+        oy = _where(scatterish, hy + eps * ndy, oy)
+        oz = _where(scatterish, hz + eps * ndz, oz)
+        dx = _where(scatterish, ndx, dx)
+        dy = _where(scatterish, ndy, dy)
+        dz = _where(scatterish, ndz, dz)
 
         dead = (~hit) | is_lite | ((is_diff | is_glos) & ~up_ok)
-        alive = alive * jnp.where(dead, 0.0, 1.0)
-        # depth_ok / rr_on are schedule-specific f32 scalars or vectors
-        # computed by the caller (scalar-pred vector selects hit a Mosaic
-        # relayout bug: "non-singleton dimension replicated in dest")
-        alive = alive * depth_ok
+        alive = alive * _where(dead, 0.0, 1.0) * depth_ok
 
         # ---- Russian roulette (optional; unbiased) ----
         u5 = _u01(seed, salt0 + 4, pidx)
         p_srv = jnp.clip(jnp.maximum(tr, jnp.maximum(tg, tb)), 0.05, 1.0)
         p_srv = p_srv * rr_on + (1.0 - rr_on)
-        alive = alive * jnp.where(u5 < p_srv, 1.0, 0.0)
+        alive = alive * _where(u5 < p_srv, 1.0, 0.0)
         inv_p = 1.0 / p_srv
         tr = tr * inv_p
         tg = tg * inv_p
         tb = tb * inv_p
 
-        prev_sc = (is_diff | is_glos).astype(jnp.float32)
-        prev_pdf = jnp.where(is_glos, pdf_mix, pdf_d)
+        prev_sc = _where(is_diff | is_glos, 1.0, 0.0)
+        prev_pdf = _where(is_glos, pdf_mix, pdf_d)
         return (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive,
-                inside, segs, prev_sc, prev_pdf)
+                inside, segs, prev_sc, prev_pdf, rows)
 
     return core
 
 
-def _render_body(static_mats, use_nee, use_mis, static_lights, regen, sub,
-                 make_intersectors, pixel_override, si_ref, sf_ref, matt_ref,
-                 lit_ref, r_ref, g_ref, b_ref, seg_ref):
-    """One block of ``sub``×128 rays, full path trace.
-
-    Engine-agnostic: the geometry queries come from ``make_intersectors(zeros,
-    row, col, t_min) -> (closest, occluded)`` where ``closest(o…, d…, alive)``
-    returns ``(best_t, nx, ny, nz, mat_id)`` with ``best_t == 3e38`` on miss,
-    and ``occluded(o…, d…, limit, cand)`` returns an f32 occlusion mask.  The
-    dense-table megakernel and the cluster-BVH megakernel share everything
-    else — camera, RNG, materials, NEE/MIS/RR, path regeneration — so the two
-    engines compute the same estimator by construction.  ``pixel_override``
-    (optional callable) supplies per-lane pixel ids (e.g. tile-order
-    permutations for the cluster engine) instead of the linear mapping.
+def _make_kernel(use_nee, use_mis, n_lights, regen, n_chunks, cull,
+                 count_rows):
+    """The kernel for one block of ``BLK`` lanes, full path trace.
 
     ``regen=False`` (batch schedule): one lane per (sample, pixel); a lane
-    whose path terminates idles until its whole block retires — average live
-    occupancy over a depth-16 cbox run is ~41%.
+    whose path terminates idles until its whole block retires.
 
     ``regen=True`` (path regeneration): one lane per *pixel*; the moment a
     lane's path terminates it generates the NEXT sample's camera ray in place
-    (per-lane depth + sample counters), so lanes stay ~fully occupied until
-    the block's final samples drain.  This is the TPU megakernel answer to
-    the dead-lane waste the reference sidesteps with per-work-item early
-    return (``intersect.cl:16-18``) — no repack pass, no atomics: a lane's
-    pixel never changes, so its radiance accumulator is already the per-pixel
-    sample sum the host wants.
+    (per-lane depth + sample counters), so lanes stay busy until the block's
+    final samples drain, and a lane's radiance accumulator is already the
+    per-pixel sample sum the host wants.  It answers the dead-lane waste the
+    reference sidesteps with per-work-item early return
+    (``intersect.cl:16-18``).
 
-    si_ref (SMEM i32): 0 width, 1 height, 2 n_tris, 3 max_depth, 4 seed,
-                       5 rr_enabled, 6 rr_start_depth, 7 n_pixels (this
-                       shard's slice length), 8 n_mats, 9 n_lights,
-                       10 pixel_base (first pixel id of the slice — 0 and
-                       W·H single-chip; a mesh pixel shard passes its own),
-                       11 total pixels (W·H — makes the per-lane RNG counter
-                       globally unique across pixel shards),
-                       12 spp (samples per lane; used when regen),
-                       13 sample_base (first global sample index — 0
-                       single-chip; a mesh samples shard passes its own, so
-                       every (sample, pixel) RNG stream matches the
-                       single-chip schedule exactly)
-    sf_ref (SMEM f32): 0:3 cam pos, 3:6 fwd, 6:9 right, 9:12 up,
-                       12 half_w, 13 half_h, 14 eps, 15 t_min,
-                       16 total light area
-    lit_ref (VMEM, L_pad×16): per emissive triangle — 0:3 v0, 3:6 e1, 6:9 e2,
-                       9:12 emission, 12:15 unit normal, 15 area CDF
+    si (i32): 0 width, 1 height, 2 n_tris, 3 max_depth, 4 seed,
+              5 rr_enabled, 6 rr_start_depth, 7 n_pixels (this shard's slice
+              length), 8 n_mats, 9 n_lights, 10 pixel_base (first pixel id of
+              the slice), 11 total pixels (W·H — makes the per-lane RNG
+              counter globally unique across pixel shards), 12 spp (samples
+              per lane under regen), 13 sample_base (first global sample index
+              — a samples shard passes its own, so every (sample, pixel) RNG
+              stream matches the single-device schedule exactly)
+    sf (f32): 0:3 cam pos, 3:6 fwd, 6:9 right, 9:12 up, 12 half_w,
+              13 half_h, 14 eps, 15 t_min, 16 total light area, 17 is_ortho,
+              18 clamp
     """
-    blk = pl.program_id(0)
-    width = si_ref[0]
-    max_depth = si_ref[3]
-    seed = si_ref[4]
 
-    n_pixels = si_ref[7]
-    row = jax.lax.broadcasted_iota(jnp.int32, (sub, 128), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (sub, 128), 1)
-    ray_idx = blk * (sub * 128) + row * 128 + col
-    if pixel_override is None:
+    def kernel(si_ref, sf_ref, tri_ref, matt_ref, lit_ref, cb_ref, r_ref,
+               g_ref, b_ref, seg_ref, *row_ref):
+        width = si_ref[0]
+        max_depth = si_ref[3]
+        seed = si_ref[4]
+        n_pixels = si_ref[7]
+        ray_idx = (pl.program_id(0) * BLK
+                   + jax.lax.broadcasted_iota(jnp.int32, (BLK,), 0))
         pixel = si_ref[10] + jax.lax.rem(ray_idx, n_pixels)
-    else:
-        pixel = pixel_override()
-    pxi = jax.lax.rem(pixel, width)
-    pyi = jax.lax.div(pixel, width)
-    # RNG counter: globally unique (sample, pixel) id — equal to ray_idx
-    # single-chip, disjoint across mesh pixel AND sample shards
-    ray_idx = (si_ref[13] + jax.lax.div(ray_idx, n_pixels)) * si_ref[11] \
-        + pixel
+        pxi = jax.lax.rem(pixel, width)
+        pyi = jax.lax.div(pixel, width)
+        # RNG counter: globally unique (sample, pixel) id — equal to ray_idx
+        # on one device, disjoint across mesh pixel AND sample shards
+        ray_idx = (si_ref[13] + jax.lax.div(ray_idx, n_pixels)) * si_ref[11] \
+            + pixel
 
-    # iota-derived zeros: forces a standard (non-replicated) vector layout on
-    # every loop-carry init — broadcast-constant inits trip a Mosaic relayout
-    # bug ("non-singleton dimension replicated in destination") in this kernel
-    zeros = (row + col).astype(jnp.float32) * 0.0
+        zeros = jnp.zeros((BLK,), jnp.float32)
+        w_f = width.astype(jnp.float32)
+        h_f = si_ref[1].astype(jnp.float32)
+        half_w = sf_ref[12]
+        half_h = sf_ref[13]
+        # pinhole vs orthographic blend (rayGenerator.cl:13-27)
+        w_ort = sf_ref[17]
 
-    w_f = width.astype(jnp.float32)
-    h_f = si_ref[1].astype(jnp.float32)
-    half_w = sf_ref[12]
-    half_h = sf_ref[13]
-    # pinhole vs orthographic blend (rayGenerator.cl:13-27; sf[17] = is_ortho)
-    w_ort = sf_ref[17]
+        def cam_ray(idx2):
+            """Camera ray for this lane's pixel, RNG stream ``idx2``
+            (rayGenerator.cl:13-27 pinhole/ortho math, jittered)."""
+            fx = pxi.astype(jnp.float32) + _u01(seed, jnp.int32(1), idx2)
+            fy = pyi.astype(jnp.float32) + _u01(seed, jnp.int32(2), idx2)
+            sx = fx / w_f - 0.5
+            sy = fy / h_f - 0.5
+            offx = 2.0 * sx * half_w * sf_ref[6] + 2.0 * sy * half_h * sf_ref[9]
+            offy = 2.0 * sx * half_w * sf_ref[7] + 2.0 * sy * half_h * sf_ref[10]
+            offz = 2.0 * sx * half_w * sf_ref[8] + 2.0 * sy * half_h * sf_ref[11]
+            cdx = sf_ref[3] + (1.0 - w_ort) * offx
+            cdy = sf_ref[4] + (1.0 - w_ort) * offy
+            cdz = sf_ref[5] + (1.0 - w_ort) * offz
+            cdx, cdy, cdz = _normalize3(cdx, cdy, cdz)
+            cox = sf_ref[0] + w_ort * offx
+            coy = sf_ref[1] + w_ort * offy
+            coz = sf_ref[2] + w_ort * offz
+            return cox, coy, coz, cdx, cdy, cdz
 
-    def cam_ray(idx2):
-        """Camera ray for this lane's pixel, RNG stream ``idx2``
-        (rayGenerator.cl:13-27 pinhole/ortho math, jittered)."""
-        fx = pxi.astype(jnp.float32) + _u01(seed, jnp.int32(1), idx2)
-        fy = pyi.astype(jnp.float32) + _u01(seed, jnp.int32(2), idx2)
-        sx = fx / w_f - 0.5
-        sy = fy / h_f - 0.5
-        offx = 2.0 * sx * half_w * sf_ref[6] + 2.0 * sy * half_h * sf_ref[9]
-        offy = 2.0 * sx * half_w * sf_ref[7] + 2.0 * sy * half_h * sf_ref[10]
-        offz = 2.0 * sx * half_w * sf_ref[8] + 2.0 * sy * half_h * sf_ref[11]
-        cdx = sf_ref[3] + (1.0 - w_ort) * offx
-        cdy = sf_ref[4] + (1.0 - w_ort) * offy
-        cdz = sf_ref[5] + (1.0 - w_ort) * offz
-        cdx, cdy, cdz = _normalize3(cdx, cdy, cdz)
-        cox = zeros + sf_ref[0] + w_ort * offx
-        coy = zeros + sf_ref[1] + w_ort * offy
-        coz = zeros + sf_ref[2] + w_ort * offz
-        return cox, coy, coz, cdx, cdy, cdz
+        closest_fn, occluded_fn = _make_intersectors(
+            tri_ref, cb_ref, n_chunks, cull, sf_ref[15])
+        core = _make_bounce_core(use_nee, use_mis, n_lights, si_ref, sf_ref,
+                                 matt_ref, lit_ref, closest_fn, occluded_fn,
+                                 seed)
+        max_depth_f = max_depth.astype(jnp.float32)
+        spp_s = si_ref[12]
+        spp_f = spp_s.astype(jnp.float32)
+        rr_en = _where(si_ref[5] > 0, 1.0, 0.0)
+        rr_start_f = si_ref[6].astype(jnp.float32)
 
-    # --- sample-0 camera rays ---
-    ox, oy, oz, dx, dy, dz = cam_ray(ray_idx)
-
-    t_min = sf_ref[15]
-    closest_fn, occluded_fn = make_intersectors(zeros, row, col, t_min)
-    core = _make_bounce_core(static_mats, use_nee, use_mis, static_lights,
-                             si_ref, sf_ref, matt_ref, lit_ref, closest_fn,
-                             occluded_fn, zeros, seed)
-    max_depth_f = max_depth.astype(jnp.float32)
-    spp_s = si_ref[12]
-    spp_f = spp_s.astype(jnp.float32)
-    rr_en = (si_ref[5] > 0).astype(jnp.float32)
-    rr_start_f = si_ref[6].astype(jnp.float32)
-
-    state = (
-        jnp.int32(0),  # iteration counter (== depth when not regen)
-        ox, oy, oz, dx, dy, dz,
-        zeros + 1.0, zeros + 1.0, zeros + 1.0,  # throughput
-        zeros, zeros, zeros,  # radiance
-        zeros + 1.0,  # alive (f32 mask)
-        zeros,  # inside (f32 mask)
-        zeros,  # live-segment counter
-        zeros,  # prev_sc: previous bounce sampled a reflective BSDF (f32)
-        zeros,  # prev_pdf: that sample's solid-angle pdf (for MIS)
-    )
-    if regen:
-        state = state + (
-            zeros,  # per-lane path depth
-            zeros,  # per-lane completed-sample count
+        state = (
+            jnp.int32(0),  # iteration counter (== depth when not regen)
+            *cam_ray(ray_idx),
+            zeros + 1.0, zeros + 1.0, zeros + 1.0,  # throughput
+            zeros, zeros, zeros,  # radiance
+            zeros + 1.0,  # alive (f32 mask)
+            zeros,  # inside (f32 mask)
+            zeros,  # live-segment counter
+            zeros,  # prev_sc: previous bounce sampled a reflective BSDF
+            zeros,  # prev_pdf: that sample's solid-angle pdf (for MIS)
+            zeros,  # live-lane triangle rows tested
         )
-
-    if regen:
-        def cond(s):
-            it, done_s = s[0], s[19]
-            return (it < spp_s * max_depth) & jnp.any(done_s < spp_f - 0.5)
-    else:
-        def cond(s):
-            depth, alive = s[0], s[13]
-            return (depth < max_depth) & jnp.any(alive > 0.0)
-
-    def bounce(s):
         if regen:
-            (it, ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive,
-             inside, segs, prev_sc, prev_pdf, depth_v, done_s) = s
-            depth = it  # scalar iteration index (RNG salt only when not regen)
-            alive_in = alive
-        else:
-            (depth, ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive,
-             inside, segs, prev_sc, prev_pdf) = s
+            state = state + (
+                zeros,  # per-lane path depth
+                zeros,  # per-lane completed-sample count
+            )
 
-        if regen:
-            # per-lane RNG coordinates: the lane's current (sample, depth)
-            salt0 = 8 * depth_v.astype(jnp.int32) + 3
-            pidx = (si_ref[13] + done_s.astype(jnp.int32)) * si_ref[11] \
-                + pixel
-            depth_ok = jnp.where(depth_v + 1.0 < max_depth_f, 1.0, 0.0)
-            rr_on = rr_en * jnp.where(depth_v >= rr_start_f, 1.0, 0.0)
+            def cond(s):
+                return (s[0] < spp_s * max_depth) & (
+                    jnp.min(s[20]) < spp_f - 0.5)
         else:
-            salt0 = 8 * depth + 3
-            pidx = ray_idx
-            depth_ok = (depth + 1 < max_depth).astype(jnp.float32)
-            rr_on = ((si_ref[5] > 0) & (depth >= si_ref[6])).astype(
-                jnp.float32)
-        (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive, inside,
-         segs, prev_sc, prev_pdf) = core(
+            def cond(s):
+                return (s[0] < max_depth) & (jnp.max(s[13]) > 0.0)
+
+        def bounce(s):
+            it = s[0]
+            st = s[1:19]
+            if regen:
+                depth_v, done_s = s[19], s[20]
+                # per-lane RNG coordinates: the lane's current (sample, depth)
+                salt0 = 8 * depth_v.astype(jnp.int32) + 3
+                pidx = (si_ref[13] + done_s.astype(jnp.int32)) * si_ref[11] \
+                    + pixel
+                depth_ok = _where(depth_v + 1.0 < max_depth_f, 1.0, 0.0)
+                rr_on = rr_en * _where(depth_v >= rr_start_f, 1.0, 0.0)
+            else:
+                salt0 = 8 * it + 3
+                pidx = ray_idx
+                depth_ok = _where(it + 1 < max_depth, 1.0, 0.0)
+                rr_on = _where((si_ref[5] > 0) & (it >= si_ref[6]), 1.0,
+                                  0.0)
+            st = core(st, salt0, pidx, depth_ok, rr_on)
+            if not regen:
+                return (it + 1, *st)
+
+            # ---- path regeneration: a terminated lane starts its pixel's
+            # next sample immediately (new camera ray, reset path state) ----
             (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive, inside,
-             segs, prev_sc, prev_pdf), salt0, pidx, depth_ok, rr_on,
-        )
+             segs, prev_sc, prev_pdf, rows) = st
+            died = s[13] - alive  # 1.0 where this iteration completed a path
+            done_s = done_s + died
+            reg = died * _where(done_s < spp_f - 0.5, 1.0, 0.0)
+            pick = reg > 0.5
+            idx_new = (si_ref[13] + done_s.astype(jnp.int32)) * si_ref[11] \
+                + pixel
+            cox, coy, coz, cdx, cdy, cdz = cam_ray(idx_new)
+            ox = _where(pick, cox, ox)
+            oy = _where(pick, coy, oy)
+            oz = _where(pick, coz, oz)
+            dx = _where(pick, cdx, dx)
+            dy = _where(pick, cdy, dy)
+            dz = _where(pick, cdz, dz)
+            tr = _where(pick, 1.0, tr)
+            tg = _where(pick, 1.0, tg)
+            tb = _where(pick, 1.0, tb)
+            inside = inside * (1.0 - reg)
+            prev_sc = prev_sc * (1.0 - reg)
+            prev_pdf = prev_pdf * (1.0 - reg)
+            depth_v = _where(pick, 0.0, depth_v + 1.0)
+            alive = alive + reg
+            return (it + 1, ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb,
+                    alive, inside, segs, prev_sc, prev_pdf, rows, depth_v,
+                    done_s)
 
-        if not regen:
-            return (depth + 1, ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb,
-                    alive, inside, segs, prev_sc, prev_pdf)
-
-        # ---- path regeneration: a terminated lane starts its pixel's next
-        # sample immediately (new camera ray, reset path state) ----
-        died = alive_in - alive  # 1.0 where this iteration completed a path
-        done_s = done_s + died
-        reg = died * jnp.where(done_s < spp_f - 0.5, 1.0, 0.0)
-        pick = reg > 0.5
-        idx_new = (si_ref[13] + done_s.astype(jnp.int32)) * si_ref[11] + pixel
-        cox, coy, coz, cdx, cdy, cdz = cam_ray(idx_new)
-        ox = jnp.where(pick, cox, ox)
-        oy = jnp.where(pick, coy, oy)
-        oz = jnp.where(pick, coz, oz)
-        dx = jnp.where(pick, cdx, dx)
-        dy = jnp.where(pick, cdy, dy)
-        dz = jnp.where(pick, cdz, dz)
-        tr = jnp.where(pick, 1.0, tr)
-        tg = jnp.where(pick, 1.0, tg)
-        tb = jnp.where(pick, 1.0, tb)
-        inside = inside * (1.0 - reg)
-        prev_sc = prev_sc * (1.0 - reg)
-        prev_pdf = prev_pdf * (1.0 - reg)
-        depth_v = jnp.where(pick, 0.0, depth_v + 1.0)
-        alive = alive + reg
-
-        return (it + 1, ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb,
-                alive, inside, segs, prev_sc, prev_pdf, depth_v, done_s)
-
-    if _BOUNCE_LOOP == "while" or regen:  # regen is inherently data-dependent
         final = jax.lax.while_loop(cond, bounce, state)
-    else:
-        final = jax.lax.fori_loop(0, max_depth, lambda i, s: bounce(s), state)
-    r_ref[:] = final[10]
-    g_ref[:] = final[11]
-    b_ref[:] = final[12]
-    seg_ref[:] = final[15]
+        r_ref[...] = final[10]
+        g_ref[...] = final[11]
+        b_ref[...] = final[12]
+        seg_ref[...] = final[15]
+        if count_rows:
+            row_ref[0][...] = final[18]
+
+    return kernel
 
 
 def _expand_bits_np(x: np.ndarray) -> np.ndarray:
@@ -934,7 +673,7 @@ def _expand_bits_np(x: np.ndarray) -> np.ndarray:
 
 
 def pack_materials(mats) -> np.ndarray:
-    """(M, 16) f32 material-constant rows (``matt_ref`` row contract)."""
+    """(M, 16) f32 material-constant rows (``matt`` row contract)."""
     m_count = max(int(mats.count), 1)
     matt = np.zeros((m_count, 16), np.float32)
     matt[: mats.count, 0:3] = np.asarray(mats.kd)
@@ -947,7 +686,7 @@ def pack_materials(mats) -> np.ndarray:
 
 
 def pack_lights(scene: T.Scene, lights):
-    """NEE light table (``lit_ref`` row contract: v0, e1, e2, emission, unit
+    """NEE light table (``lit`` row contract: v0, e1, e2, emission, unit
     normal, area CDF) → (lit, n_lights, total_area)."""
     n_lights = 0
     total_area = 0.0
@@ -971,10 +710,10 @@ def pack_lights(scene: T.Scene, lights):
 class MegaScene(NamedTuple):
     """Device tables for the megakernel (built once per scene)."""
 
-    tri: jnp.ndarray  # (T_pad, 16) f32 — Morton row order past the unroll cap
-    cbox: jnp.ndarray  # (T_pad/CHUNK, 8) f32 chunk AABBs ((1,8) when unrolled)
+    tri: jnp.ndarray  # (T_pad, 16) f32 — Morton row order when culled
+    cbox: jnp.ndarray  # (T_pad/CHUNK, 8) f32 chunk AABBs ((1, 8) unculled)
     matt: jnp.ndarray  # (M, 16) f32 — one row per material
-    lit: jnp.ndarray  # (L_pad, 16) f32 — emissive-tri table (NEE)
+    lit: jnp.ndarray  # (L, 16) f32 — emissive-tri table (NEE)
     n_tris: int
     n_mats: int
     n_lights: int
@@ -983,7 +722,7 @@ class MegaScene(NamedTuple):
 
 
 def build_megascene(scene: T.Scene, lights=None) -> MegaScene:
-    """Pack Wald transforms + per-triangle material constants into VMEM rows.
+    """Pack Wald transforms + per-triangle normal/material rows.
     ``lights`` (mcpt.scene.Lights) enables the NEE table."""
     assert scene.wald is not None, "scene has no Wald transforms"
     w = np.asarray(scene.wald.w)  # (3, T, 3), w[k, t, j] = A[t, j, k]
@@ -995,16 +734,16 @@ def build_megascene(scene: T.Scene, lights=None) -> MegaScene:
     tri[:, 0:9] = a.reshape(t_count, 9)
     tri[:, 9:12] = b
     tri[:, 12:15] = normals
-
     mat_id = np.clip(np.asarray(scene.geom.mat_id), 0, None)
     tri[:, 15] = mat_id.astype(np.float32)
 
     verts3 = np.asarray(scene.geom.verts, np.float32).reshape(t_count, 3, 3)
-    if t_count > UNROLL_MAX_TRIS:
-        # fori-tier scenes: Morton-sort rows so each CHUNK_TRIS-row chunk is
-        # spatially tight, enabling the in-kernel chunk-box culling.  Row
-        # order is internal to the kernel (normals/material ride the rows;
-        # the NEE light table indexes the original geometry separately).
+    cull = t_count > CULL_MIN_TRIS
+    if cull:
+        # Morton-sort rows so each CHUNK_TRIS-row chunk is spatially tight,
+        # enabling the in-kernel chunk-box culling.  Row order is internal to
+        # the kernel (normals/material ride the rows; the NEE light table
+        # indexes the original geometry separately).
         cen = verts3.mean(axis=1)
         lo = cen.min(axis=0)
         ext = np.maximum(cen.max(axis=0) - lo, 1e-20)
@@ -1016,21 +755,17 @@ def build_megascene(scene: T.Scene, lights=None) -> MegaScene:
         tri = tri[perm]
         verts3 = verts3[perm]
 
-    matt = pack_materials(scene.materials)
-    m_count = matt.shape[0]
-
     pad = (-t_count) % CHUNK_TRIS
     if pad:
         tri = np.pad(tri, ((0, pad), (0, 0)))
-        matt = np.pad(matt, ((0, pad), (0, 0)))
-        # padded rows: b2 = 1, A = 0 ⇒ d'_w = 0 ⇒ never hit — the chunked
-        # fori loops test all padded rows, so this is load-bearing
+        # padded rows: b2 = 1, A = 0 ⇒ d'_w = 0 ⇒ never hit — the chunk loops
+        # test every padded row, so this is load-bearing
         tri[t_count:, 11] = 1.0
 
-    # per-chunk AABBs for the fori tier's culling (pad rows excluded via
-    # ±inf sentinels; every chunk holds ≥1 real row, so no box inverts —
-    # an inverted box would ALWAYS pass the min/max slab test)
-    if t_count > UNROLL_MAX_TRIS:
+    if cull:
+        # per-chunk AABBs (pad rows excluded via ±inf sentinels; every chunk
+        # holds ≥1 real row, so no box inverts — an inverted box would ALWAYS
+        # pass the min/max slab test)
         n_rows = tri.shape[0]
         tmin = np.full((n_rows, 3), np.inf, np.float32)
         tmax = np.full((n_rows, 3), -np.inf, np.float32)
@@ -1041,13 +776,14 @@ def build_megascene(scene: T.Scene, lights=None) -> MegaScene:
         cbox[:, 0:3] = tmin.reshape(nch, CHUNK_TRIS, 3).min(axis=1)
         cbox[:, 3:6] = tmax.reshape(nch, CHUNK_TRIS, 3).max(axis=1)
     else:
-        cbox = np.zeros((1, 8), np.float32)  # unrolled tier: never read
+        cbox = np.zeros((1, 8), np.float32)  # never read
 
+    matt = pack_materials(scene.materials)
     lit, n_lights, total_area = pack_lights(scene, lights)
     return MegaScene(
         tri=jnp.asarray(tri), matt=jnp.asarray(matt), lit=jnp.asarray(lit),
         cbox=jnp.asarray(cbox),
-        n_tris=t_count, n_mats=m_count, n_lights=n_lights,
+        n_tris=t_count, n_mats=matt.shape[0], n_lights=n_lights,
         eps=float(scene.eps), total_light_area=total_area,
     )
 
@@ -1062,48 +798,37 @@ def render_mega(mega: MegaScene, cam: T.Camera, width: int, height: int,
     """Render spp samples → ((pixel_count, 3) radiance sum, segments).
 
     ``schedule`` picks the lane scheduling: ``"regen"`` — one lane per pixel,
-    in-kernel path regeneration through all spp samples (high occupancy, the
-    default for spp > 1); ``"batch"`` — one lane per (sample, pixel), whole
-    blocks retire early (reference-like, spp == 1 or A/B baselines);
-    ``"auto"`` — regen when spp > 1.  Both schedules compute the same
-    estimator (different RNG stream assignment only).
+    in-kernel path regeneration through all spp samples; ``"batch"`` — one
+    lane per (sample, pixel), whole blocks retire early; ``"auto"`` — regen
+    when spp > 1.  Both compute the same estimator with the same RNG streams.
 
     ``pixel_base``/``pixel_count`` select a contiguous pixel slice (defaults:
     the whole image) — the spatial-sharding hook for
     ``mcpt.dist.render_mega_sharded`` (pixel_base may be traced, e.g. a mesh
     axis index).  ``sample_base`` offsets the global sample indices the same
     way (a ``samples``-axis shard renders samples ``[sample_base,
-    sample_base + spp)`` of the single-chip schedule with the SAME seed, so
-    sharded output is stream-exact against single-chip).
+    sample_base + spp)`` of the single-device schedule with the SAME seed, so
+    sharded output is stream-exact against one device).
 
-    ``count_rows=True`` (instrumented builds, fori tier only): returns a
-    third value — the live-lane triangle-row tests actually executed after
-    chunk-AABB culling.  This is the honest flop numerator for bench.py's
-    MFU model (the static ``44·T_rows`` count is an upper bound by the
-    measured skip rate)."""
+    ``interpret=True`` runs the kernel in the Pallas interpreter (any
+    backend); otherwise it is compiled for the GPU (see
+    ``mcpt.runtime.pallas_interpret``).
+
+    ``count_rows=True`` returns a third value: the live-lane triangle rows
+    actually tested, after chunk culling (the operation count behind a
+    roofline share)."""
     if pixel_count is None:
         pixel_count = width * height
     if schedule == "auto":
-        # regen's bounce loop is inherently a data-dependent While; if the
-        # Mosaic probe ever downgrades _BOUNCE_LOOP to "fori", auto must not
-        # pick a schedule the backend can't lower
-        schedule = "regen" if spp > 1 and _BOUNCE_LOOP == "while" else "batch"
-    if schedule == "regen" and _BOUNCE_LOOP != "while":
-        raise RuntimeError(
-            "schedule='regen' needs data-dependent while_loop support, which "
-            "the Mosaic probe disabled on this backend (_BOUNCE_LOOP="
-            f"{_BOUNCE_LOOP!r}); use schedule='batch'"
-        )
-    assert schedule in ("regen", "batch"), schedule
-    if count_rows:
-        assert mega.n_tris > UNROLL_MAX_TRIS, \
-            "count_rows instruments the culled fori tier only"
+        schedule = "regen" if spp > 1 else "batch"
+    if schedule not in ("regen", "batch"):
+        raise ValueError(f"unknown schedule {schedule!r}")
     return _render_mega_jit(
         mega.tri, mega.matt, mega.lit, mega.cbox, cam, width, height, spp,
         seed, max_depth, rr, rr_start, nee and mega.n_lights > 0, mis, clamp,
-        t_min, interpret, mega.n_tris, mega.n_mats, mega.n_lights, mega.eps,
-        mega.total_light_area, pixel_base, pixel_count, sample_base,
-        schedule == "regen", count_rows,
+        t_min, pallas_interpret(interpret), mega.n_tris, mega.n_mats,
+        mega.n_lights, mega.eps, mega.total_light_area, pixel_base,
+        pixel_count, sample_base, schedule == "regen", count_rows,
     )
 
 
@@ -1151,62 +876,29 @@ def _render_mega_jit(tri, matt, lit, cb, cam, width, height, spp, seed,
         ]
     ).astype(jnp.float32)
 
-    grid = (n_blocks,)
+    assert tri.shape[0] % CHUNK_TRIS == 0, tri.shape
     n_out = 5 if count_rows else 4
-    out_shape = [
-        jax.ShapeDtypeStruct((n_blocks * SUB, 128), jnp.float32)
-        for _ in range(n_out)
-    ]
-    out_specs = [
-        pl.BlockSpec((SUB, 128), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        for _ in range(n_out)
-    ]
-    static_tris = n_tris if n_tris <= UNROLL_MAX_TRIS else None
-    static_mats = n_mats if n_mats <= 64 else None
-    if static_tris is None:
-        assert tri.shape[0] % CHUNK_TRIS == 0, tri.shape
     outs = pl.pallas_call(
-        _make_render_kernel(static_tris, static_mats, nee, mis, n_lights,
-                            regen, tri.shape[0], count_rows),
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        # hit/occlusion state for the culled fori tier (pl.when branches
-        # mutate refs, so the while-loop carry stays unchanged)
-        scratch_shapes=[
-            pltpu.VMEM((SUB, 128), jnp.float32),
-            pltpu.VMEM((SUB, 128), jnp.int32),
-            pltpu.VMEM((SUB, 128), jnp.float32),
-        ],
-        # scoped-VMEM headroom: the fully-unrolled tier's straight-line code
-        # (up to UNROLL_MAX_TRIS hoisted rows × 3 loop bodies) spills past
-        # the 16 MiB default stack limit above ~300 tris; the chip has
-        # 128 MiB, and the cluster kernels already run at 96 MiB
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=96 * 1024 * 1024,
-        ),
-        # CPU hosts run the classic interpreter (see mcpt/pallas/_interp.py)
-        interpret=interp_mode(interpret),
+        _make_kernel(nee, mis, n_lights, regen, tri.shape[0] // CHUNK_TRIS,
+                     n_tris > CULL_MIN_TRIS, count_rows),
+        grid=(n_blocks,),
+        out_shape=[jax.ShapeDtypeStruct((n_blocks * BLK,), jnp.float32)
+                   for _ in range(n_out)],
+        out_specs=[pl.BlockSpec((BLK,), lambda i: (i,)) for _ in range(n_out)],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
+        interpret=interpret,
+        name="mcpt_megakernel",
     )(si, sf, tri, matt, lit, cb)
-    r, g, b, segs = outs[:4]
+    r, g, b, segs = (o[:n_rays] for o in outs[:4])
 
-    rad = jnp.stack(
-        [r.reshape(-1)[:n_rays], g.reshape(-1)[:n_rays], b.reshape(-1)[:n_rays]],
-        axis=-1,
-    )
+    rad = jnp.stack([r, g, b], axis=-1)
     if regen:
         radiance = rad  # each lane already accumulated all spp samples
     else:
         radiance = rad.reshape(spp, n_pixels, 3).sum(axis=0)
-    segments = jnp.sum(segs.reshape(-1)[:n_rays])
+    segments = jnp.sum(segs)
     if count_rows:
-        return radiance, segments, jnp.sum(outs[4].reshape(-1)[:n_rays])
+        return radiance, segments, jnp.sum(outs[4][:n_rays])
     return radiance, segments

@@ -20,7 +20,6 @@ Differences from the reference, on purpose:
 
 from __future__ import annotations
 
-import functools
 import math
 
 import jax
@@ -80,33 +79,6 @@ def make_camera(cfg: CameraConfig, ortho_height: float | None = None) -> Camera:
         half_width=jnp.float32(half_h * aspect),
         is_ortho=jnp.float32(1.0 if is_ortho else 0.0),
     )
-
-
-@functools.lru_cache(maxsize=32)
-def tile_order(width: int, height: int, block: int = 1024):
-    """Pixel permutation that makes consecutive ``block``-ray groups square-ish
-    screen tiles (≈√block × √block) instead of scanline strips.
-
-    The block-coherent traversal kernel (``mcpt.pallas.traverse_kernel``) walks
-    the union of each ray block's node sets, so block compactness is traversal
-    speed (measured 3.2× on the 108k-tri boxfield).  Returns ``(perm,
-    inv_perm)`` as numpy int32: rays are generated for pixels ``perm`` and the
-    radiance image recovered as ``radiance[inv_perm]``.  No reference
-    counterpart — GPU warps get this locality from 2D work-group dispatch.
-    """
-    import numpy as np
-
-    tx = 1 << ((block.bit_length() - 1) // 2)
-    ty = block // tx
-    yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
-    n_tx = (width + tx - 1) // tx
-    key = ((yy // ty) * n_tx + (xx // tx)) * (tx * ty) + (yy % ty) * tx + (
-        xx % tx
-    )
-    perm = np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.size, dtype=np.int32)
-    return perm, inv
 
 
 def generate_rays(

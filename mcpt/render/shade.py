@@ -1,10 +1,10 @@
 """BSDF sampling + path-state update — the integrator core.
 
-TPU-native re-design of the reference shade kernel (``kernels/shade.cl:75-206``):
+Data-parallel re-design of the reference shade kernel (``kernels/shade.cl:75-206``):
 one fused, fully-vectorized update over the whole ray pool per bounce.  All four
 material branches (DIFFUSE/GLOSSY/TRANSPARENT/LIGHT, ``shade.cl:113-197``) are
-computed dense and mask-selected — on TPU the four branches cost less than any
-divergence machinery would.
+computed dense and mask-selected — over a whole ray pool the four branches cost
+less than any divergence machinery would.
 
 Estimator corrections vs. the reference (documented deviations; the course
 ground-truth EXRs, not the reference's own output, are the physics oracle):

@@ -3,19 +3,17 @@
 Replaces the reference's per-ray OpenCL traversal (``objdef.h:240-275``: a
 ``stack[64]`` walk with ``goto``-based descend-left/push-right, one work-item per
 ray) and its triangle test (``objdef.h:178-221``: solving a 4×4 system by cofactor
-inversion).  Neither maps to TPU execution:
+inversion), as plain JAX that XLA compiles:
 
 - The triangle test becomes Möller–Trumbore (~1/10th the FLOPs of the 4×4 inverse
   and numerically better behaved).
-- Traversal is re-architected as a *ray-batched* loop: every ray in the pool steps
-  its own short stack simultaneously, so each iteration is a handful of dense
-  gathers + vector ops over the whole pool (VPU-shaped), with a
-  ``lax.while_loop`` running until every lane's stack is empty.  Ordered descent
-  (near child first) plus a current-best-t prune keeps visit counts close to the
-  scalar reference's.
+- Traversal is a *ray-batched* loop: every ray in the pool steps its own
+  ``stack[64]`` simultaneously, so each iteration is a handful of gathers +
+  elementwise ops over the whole pool, with a ``lax.while_loop`` running until
+  every lane's stack is empty.  Ordered descent (near child first) plus a
+  current-best-t prune keeps visit counts close to the scalar reference's.
 - For small scenes a brute-force all-triangles test (chunked ``lax.scan``) beats
-  any tree — the reference has no such path but on TPU it is the fast path for
-  cbox-sized scenes.
+  any tree.
 
 """
 
@@ -143,10 +141,10 @@ def intersect_wald(wald, geom: Geometry, origin, direction, t_max=None,
     def body(carry, wb):
         best_t, best_i, base = carry
         wc, bc = wb  # (3, C, 3), (C, 3)
-        # HIGHEST precision: the TPU MXU's default f32 path splits operands
-        # into bfloat16 passes — not enough mantissa for 550-unit scene
-        # coordinates (hits near triangle edges flip and ~20% of light is
-        # lost); HIGHEST forces the exact-f32 multiply path.
+        # HIGHEST precision: a default-precision f32 contraction may run in
+        # reduced precision (TF32 on the GPU's tensor cores) — not enough
+        # mantissa for 550-unit scene coordinates (hits near triangle edges
+        # flip and light is lost); HIGHEST forces the exact-f32 path.
         op = jnp.einsum("rk,kcj->rcj", origin, wc,
                         preferred_element_type=jnp.float32,
                         precision=jax.lax.Precision.HIGHEST) + bc[None]
@@ -252,9 +250,9 @@ def intersect_bvh(
             jnp.where(ok, t, jnp.inf), jnp.where(ok, 0, -1),
         )
 
-    # Packed gather tables: TPU dynamic-gathers have high per-op overhead, so
-    # fetch wide rows — one (R,2) children gather, one (R,2,6) both-children box
-    # gather and one (R,9) triangle gather per step instead of eight narrow ones.
+    # Packed gather tables: fetch wide rows — one (R,2) children gather, one
+    # (R,2,6) both-children box gather and one (R,9) triangle gather per step
+    # instead of eight narrow ones.
     boxes6 = jnp.concatenate([bvh.bbmin, bvh.bbmax], axis=1)  # (2N-1, 6)
     children = jnp.stack([bvh.left, bvh.right], axis=1)  # (2N-1, 2)
     verts9 = geom.verts.reshape(n, 9)
@@ -318,30 +316,16 @@ def intersect_bvh(
 
 
 def resolve_method(scene, method: str = "auto") -> str:
-    """``auto`` → brute below 512 tris; the Pallas block-coherent cluster
-    kernel on TPU when the scene carries a ClusterBVH; the XLA batched-stack
-    walk otherwise (and on CPU hosts, where the cluster kernel would run under
-    the slow TPU interpreter — tests opt in with an explicit ``cluster``)."""
+    """``auto`` → brute force up to 512 triangles, the BVH walk past that."""
     if method != "auto":
         return method
-    if scene.geom.count <= 512:
-        return "brute"
-    if scene.clusters is not None and jax.default_backend() == "tpu":
-        return "cluster"
-    return "bvh"
+    return "brute" if scene.geom.count <= 512 else "bvh"
 
 
 def intersect_scene(scene, origin, direction, active=None, method: str = "auto"):
     """Dispatch per ``resolve_method``.  The brute path uses the precomputed
     Wald transforms when the scene carries them."""
     method = resolve_method(scene, method)
-    if method == "cluster":
-        from mcpt.pallas import traverse_kernel as tk
-
-        assert scene.clusters is not None, "scene has no ClusterBVH"
-        return tk.intersect_clusters(
-            scene.clusters, origin, direction, active=active
-        )
     if method == "brute":
         if scene.wald is not None:
             hit = intersect_wald(scene.wald, scene.geom, origin, direction)
@@ -355,21 +339,13 @@ def intersect_scene(scene, origin, direction, active=None, method: str = "auto")
                 normal=hit.normal,
             )
         return hit
+    if method != "bvh":
+        raise ValueError(f"unknown intersection method {method!r}")
     return intersect_bvh(scene.bvh, scene.geom, origin, direction, active=active)
 
 
 def occluded(scene, origin, direction, t_max, active=None, method: str = "auto"):
     """Shadow-ray query: is there any hit with t < t_max?  (Used by NEE, which
-    the reference lacks.)  Clustered scenes use the dedicated any-hit kernel
-    (first-hit accept + occluded-lane pruning + whole-block early retirement);
-    the brute/XLA paths answer via closest-hit."""
-    method = resolve_method(scene, method)
-    if method == "cluster":
-        from mcpt.pallas import traverse_kernel as tk
-
-        return tk.occluded_clusters(
-            scene.clusters, origin, direction, t_max * (1.0 - 1e-3),
-            active=active,
-        )
+    the reference lacks.)  Answered via the closest-hit query."""
     hit = intersect_scene(scene, origin, direction, active=active, method=method)
     return hit.t < t_max * (1.0 - 1e-3)

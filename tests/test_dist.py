@@ -69,8 +69,9 @@ def test_sharded_matches_single_device():
 
 def test_mega_sharded_furnace_exact(furnace):
     """The fused Pallas kernel under shard_map: furnace identity must survive
-    sample-axis DP + psum (kernel runs in TPU-interpret mode on the CPU mesh),
-    and the sharded render must be stream-exact against single-chip (same
+    sample-axis DP + psum (kernel runs in the Pallas interpreter on the CPU
+    mesh),
+    and the sharded render must be stream-exact against one device (same
     seed, global sample indices via ``sample_base``) AND invariant to the
     mesh shape — only f32 sum order may differ."""
     from mcpt.pallas import megakernel as mk
@@ -88,7 +89,7 @@ def test_mega_sharded_furnace_exact(furnace):
     np.testing.assert_allclose(img[0, 0], 1.0, atol=1e-5)
     assert float(segs) > 0.0
 
-    # stream-exact vs single chip (same seed, same (sample, pixel) streams)
+    # stream-exact vs one device (same seed, same (sample, pixel) streams)
     rad_1, segs_1 = mk.render_mega(
         mega, cam, res, res, spp=8, seed=0, max_depth=6, interpret=True,
     )
@@ -116,118 +117,3 @@ def test_sharded_deterministic(furnace):
         scene, lights, cam, 16, 16, jax.random.key(3), opts, spp=2, mesh=mesh
     )
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.slow
-def test_cluster_sharded_matches_single_device():
-    """The fused cluster engine under the ('samples','pixels') mesh (pixel
-    slices of the tile permutation + sample-axis psum; kernel runs in
-    TPU-interpret mode on the CPU mesh) must be stream-exact against the
-    single-chip cluster render — same seed, global sample indices — and
-    invariant to the mesh shape."""
-    import dataclasses
-
-    from mcpt.pallas import cluster_megakernel as cmk
-    from mcpt.scenes import boxfield
-
-    loaded, camcfg = boxfield(60)
-    w = h = 16
-    camcfg = dataclasses.replace(camcfg, resolution=(w, h))
-    scene, lights = build_scene(loaded)
-    cam = cm.make_camera(camcfg)
-    cms = cmk.build_cluster_megascene(scene, lights)
-
-    mesh = dist.make_mesh(samples=2, pixels=4)
-    rad_sh, segs_sh = dist.render_cluster_sharded(
-        cms, cam, w, h, spp=2, mesh=mesh, seed=5, max_depth=2, nee=True,
-        mis=True, interpret=True,
-    )
-    rad_sh = np.asarray(rad_sh)
-    assert rad_sh.shape == (w * h, 3)
-    assert np.isfinite(rad_sh).all() and rad_sh.sum() > 0.0
-
-    # stream-exact vs single chip: same seed, batch schedule (the sharded
-    # path's schedule), same (sample, pixel) RNG streams
-    rad_1, segs_1 = cmk.render_cluster_mega(
-        cms, cam, w, h, spp=2, seed=5, max_depth=2, nee=True, mis=True,
-        interpret=True, schedule="batch",
-    )
-    np.testing.assert_allclose(rad_sh, np.asarray(rad_1), rtol=1e-5,
-                               atol=1e-6)
-    assert float(segs_sh) == float(segs_1)
-
-    # mesh-shape invariance: pure sample DP ≡ mixed
-    rad_b, _ = dist.render_cluster_sharded(
-        cms, cam, w, h, spp=2, mesh=dist.make_mesh(samples=1, pixels=8),
-        seed=5, max_depth=2, nee=True, mis=True, interpret=True,
-    )
-    np.testing.assert_allclose(rad_sh, np.asarray(rad_b), rtol=1e-5,
-                               atol=1e-6)
-
-
-@pytest.mark.slow
-def test_hybrid_sharded_matches_single_device():
-    """The production large-scene engine (hybrid fused-bounce) under the
-    ('samples','pixels') mesh must reproduce the single-chip hybrid render
-    exactly up to f32 sum order: the sharded path renders the SAME global
-    (sample, pixel) RNG streams (``sample_base`` offsets, global rng ids),
-    so per-pixel radiance matches to round-off, not just in expectation."""
-    import dataclasses
-
-    from mcpt.pallas import cluster_megakernel as cmk
-    from mcpt.scenes import boxfield
-
-    # sizes are deliberately tiny (8x8, spp 2, depth 2, subt=8 -> 1024-lane
-    # pools): the CI host runs the 8-device mesh on ONE core, so every extra
-    # block/bounce multiplies interpret-mode wall time
-    loaded, camcfg = boxfield(60)
-    w = h = 8
-    camcfg = dataclasses.replace(camcfg, resolution=(w, h))
-    scene, lights = build_scene(loaded)
-    cam = cm.make_camera(camcfg)
-    cms = cmk.build_cluster_megascene(scene, lights)
-
-    mesh = dist.make_mesh(samples=2, pixels=4)
-    rad_sh, segs_sh = dist.render_hybrid_sharded(
-        cms, dist.replicate(cam, mesh), w, h, spp=2, mesh=mesh, seed=7,
-        max_depth=2, nee=True, mis=True, interpret=True, subt=8,
-    )
-    rad_sh = np.asarray(rad_sh)
-    assert rad_sh.shape == (w * h, 3)
-    assert np.isfinite(rad_sh).all() and rad_sh.sum() > 0.0
-
-    rad_1, segs_1 = cmk.render_hybrid(
-        cms, cam, w, h, spp=2, seed=7, max_depth=2, nee=True, mis=True,
-        interpret=True, subt=8,
-    )
-    np.testing.assert_allclose(rad_sh, np.asarray(rad_1), rtol=1e-5,
-                               atol=1e-6)
-    assert float(segs_sh) == float(segs_1)
-
-
-def test_hybrid_sharded_with_compaction():
-    """Sharded hybrid with per-shard pool compaction: still unbiased and
-    finite (compaction schedules are shard-local; radiance tails ride to
-    each shard's final reduce)."""
-    import dataclasses
-
-    from mcpt.pallas import cluster_megakernel as cmk
-    from mcpt.scenes import boxfield
-
-    loaded, camcfg = boxfield(60)
-    w = h = 8
-    camcfg = dataclasses.replace(camcfg, resolution=(w, h))
-    scene, lights = build_scene(loaded)
-    cam = cm.make_camera(camcfg)
-    cms = cmk.build_cluster_megascene(scene, lights)
-
-    mesh = dist.make_mesh(samples=2, pixels=4)
-    rad_sh, segs_sh = dist.render_hybrid_sharded(
-        cms, dist.replicate(cam, mesh), w, h, spp=2, mesh=mesh, seed=7,
-        max_depth=3, nee=True, mis=True, interpret=True, subt=8,
-        compact=(0.9, 0.75),
-    )
-    rad_sh = np.asarray(rad_sh)
-    assert rad_sh.shape == (w * h, 3)
-    assert np.isfinite(rad_sh).all() and rad_sh.sum() > 0.0
-    assert np.isfinite(float(segs_sh))

@@ -2,10 +2,12 @@
 ``Scene/README.md:19``, made executable).
 
 The goldens (``tests/goldens/*.exr``) are 2048-spp renders produced by
-``tools/make_goldens.py`` through the Pallas megakernel ON the TPU; these
-tests re-render at low spp through the *wavefront* integrator on the CPU —
-so each gate is simultaneously a ground-truth RMSE check and a cross-engine
-consistency check (independent RNG, intersector, and code path).
+``tools/make_goldens.py`` (by earlier versions of the engines, on other
+hardware: they are physics references); these tests re-render at low spp
+through the *wavefront* integrator on the CPU — so each gate is
+simultaneously a ground-truth RMSE check and a cross-engine consistency
+check (independent RNG, intersector, and code path).  ``chip_smoke.py``
+applies the same gates to the CLI's engine on the GPU.
 """
 
 import dataclasses
@@ -65,15 +67,14 @@ def test_veach_golden_gate():
 def test_diningroom_golden_gate():
     """The reference's third workload class (large BVH, NEE from small
     emitters; ``Scene/diningroom/diningroom.exr`` is its course golden).
-    The committed golden is a 2048-spp TPU render through the CLUSTER
+    The committed golden is a 2048-spp render by an earlier large-scene
     engine (``tools/make_goldens.py``); this gate re-renders at low spp
     through the wavefront integrator's XLA stack-walk intersector — a
     fully independent RNG + traversal + shading path."""
     golden_path = os.path.join(_GOLDEN_DIR, "diningroom.exr")
     if not os.path.exists(golden_path):
         pytest.skip("diningroom golden not rendered yet (tools/make_goldens)")
-    # method="bvh": the XLA batched-stack walk is CPU-native (the cluster
-    # kernel would run under the slow Pallas interpreter at this scale).
+    # method="bvh": the XLA batched-stack walk.
     # 16 spp measured 0.099 rel-RMSE (2026-08-18) — tol 0.35 leaves >3x
     # headroom (8 spp measured ~0.30, only 1.17x from the gate — ADVICE r3)
     _gate("diningroom", 160, 90, spp=16, depth=8, tol=0.35, method="bvh")

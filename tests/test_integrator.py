@@ -277,3 +277,39 @@ def test_ortho_furnace_identity():
     img = _img(scene, lights, cam, 32, opts, spp=2)
     np.testing.assert_allclose(img[16, 16], 0.5, atol=1e-5)
     np.testing.assert_allclose(img[1, 1], 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("coarse_bits", [3, 6, 9])
+def test_sort_key_dead_last_nonnegative(coarse_bits):
+    """The resort key is a non-negative int32 (a negative key would sort
+    first), dead rays get the 0x7FFFFFFF sentinel above every live key, and
+    the resort moves them to the end of the pool."""
+    import jax.numpy as jnp
+
+    from mcpt.types import RayPool
+
+    rng = np.random.default_rng(coarse_bits)
+    n = 512
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    alive = rng.uniform(size=n) > 0.3
+    pool = RayPool(
+        origin=jnp.asarray(rng.uniform(-5, 5, (n, 3)).astype(np.float32)),
+        direction=jnp.asarray(d),
+        throughput=jnp.ones((n, 3), jnp.float32),
+        radiance=jnp.zeros((n, 3), jnp.float32),
+        pixel=jnp.arange(n, dtype=jnp.int32),
+        alive=jnp.asarray(alive),
+        inside=jnp.zeros((n,), bool),
+    )
+    lo, inv = jnp.full(3, -5.0), jnp.full(3, 0.1)
+    key = np.asarray(integ._sort_key(pool, lo, inv, coarse_bits))
+    assert key.dtype == np.int32 and (key >= 0).all()
+    assert (key[~alive] == 0x7FFFFFFF).all()
+    assert (key[alive] < 0x7FFFFFFF).all()
+    sorted_pool, *_ = integ._resort_pool(
+        pool, jnp.zeros(n, bool), jnp.zeros(n), jnp.arange(n), lo, inv,
+        coarse_bits)
+    s_alive = np.asarray(sorted_pool.alive)
+    n_live = int(alive.sum())
+    assert s_alive[:n_live].all() and not s_alive[n_live:].any()

@@ -1,5 +1,6 @@
-"""Pallas megakernel correctness (TPU-interpreter mode on CPU) against the
-reference-path jnp renderer and the analytic oracles."""
+"""Pallas megakernel correctness on the CPU (Pallas interpreter,
+``interpret=True``) against the wavefront integrator and the analytic
+oracles.  The compiled kernel's counterparts are in ``tests/test_gpu.py``."""
 
 import dataclasses
 
@@ -12,7 +13,15 @@ from mcpt.render import camera as cm
 from mcpt.render import integrator as integ
 from mcpt.render.integrator import RenderOptions
 from mcpt.scene import build_scene
+from mcpt import scenes
 from mcpt.scenes import cornell_box, furnace_sphere
+
+
+def _setup(name, w, h, **kw):
+    loaded, camcfg = getattr(scenes, name)(**kw)
+    scene, lights = build_scene(loaded)
+    cam = cm.make_camera(dataclasses.replace(camcfg, resolution=(w, h)))
+    return scene, lights, cam
 
 
 def test_rng_uniformity():
@@ -26,6 +35,40 @@ def test_rng_uniformity():
     # different salts decorrelate
     v = np.asarray(mk._u01(jnp.int32(7), jnp.int32(4), idx))
     assert abs(np.corrcoef(u, v)[0, 1]) < 0.02
+
+
+# Relative tolerance on the image mean of two independent 256-spp estimates
+# (different RNG, intersector and code path) at 12x12, depth 4: about three
+# times the spread measured over seeds (furnace ~0.3%, quad light ~2%,
+# cbox ~4%).  A missing or double-counted NEE/MIS term moves the mean by
+# tens of percent.
+_TOL = {"furnace_sphere": 0.01, "quad_light_plane": 0.06,
+        "cornell_box": 0.12}
+_KW = {"furnace_sphere": dict(subdiv=1)}
+
+
+@pytest.mark.parametrize("mode", ["plain", "nee", "nee_mis"])
+@pytest.mark.parametrize("name", ["furnace_sphere", "quad_light_plane",
+                                  "cornell_box"])
+def test_megakernel_matches_wavefront(name, mode):
+    res, spp, depth = 12, 256, 4
+    nee, mis = mode != "plain", mode == "nee_mis"
+    scene, lights, cam = _setup(name, res, res, **_KW.get(name, {}))
+    mega = mk.build_megascene(scene, lights)
+    rad, segs = mk.render_mega(mega, cam, res, res, spp=spp, seed=1,
+                               max_depth=depth, nee=nee, mis=mis,
+                               interpret=True)
+    m_mega = float(np.asarray(rad).mean()) / spp
+    assert float(segs) > 0
+    opts = RenderOptions(max_depth=depth, nee=nee, mis=mis, method="brute")
+    rad_w = integ.render_batch(scene, lights, cam, res, res,
+                               jax.random.key(2), opts, spp=spp)
+    m_wave = float(np.asarray(rad_w).mean()) / spp
+    assert abs(m_mega - m_wave) <= _TOL[name] * m_wave, (m_mega, m_wave)
+    if name == "furnace_sphere" and mode == "plain":
+        img = np.asarray(rad).reshape(res, res, 3) / spp
+        np.testing.assert_allclose(img[res // 2, res // 2], 0.5, atol=1e-5)
+        np.testing.assert_allclose(img[0, 0], 1.0, atol=1e-5)
 
 
 @pytest.mark.slow
@@ -78,22 +121,31 @@ def test_megakernel_nee_matches_wavefront():
     assert abs(m.mean() - j.mean()) < 0.05 * j.mean()
 
 
+def _nocull(mega):
+    """Infinite chunk boxes: every chunk passes the cull test."""
+    import jax.numpy as jnp
+
+    c = mega.tri.shape[0] // mk.CHUNK_TRIS
+    big = np.zeros((c, 8), np.float32)
+    big[:, 0:3] = -3.0e38
+    big[:, 3:6] = 3.0e38
+    return mega._replace(cbox=jnp.asarray(big))
+
+
 @pytest.mark.slow
 def test_megakernel_chunked_fori_matches_unrolled(monkeypatch):
-    """Scenes past UNROLL_MAX_TRIS run chunk-unrolled, AABB-culled fori
-    triangle loops (intersect + resolve + NEE shadow).  Force cbox through
-    that tier by lowering the cap and gate two invariants:
+    """Scenes past CULL_MIN_TRIS run the chunk-culled tier (intersect + NEE
+    shadow).  Force cbox through it by lowering the cap and gate two
+    invariants:
 
-    1. fori tier over the SAME row order (culling disabled via infinite
-       chunk boxes) ≡ the unrolled render to f32 round-off — RNG streams are
-       identical, so this is deterministic (measured max |diff| ~6e-8).
-       A Morton-reordered table is NOT comparable this way: reordering
-       changes which triangle wins exact-tie hits at shared edges.
+    1. the culled tier over the SAME row order with culling disabled
+       (infinite chunk boxes) ≡ the dense tier, to f32 round-off — RNG
+       streams are identical, so this is deterministic.  A Morton-reordered
+       table is NOT comparable this way: reordering changes which triangle
+       wins exact-tie hits at shared edges.
     2. real chunk culling ≡ no culling, bit-exact, on the production
        (Morton-sorted) table — a skipped chunk must never hide a hit.
     """
-    import jax.numpy as jnp
-
     loaded, camcfg = cornell_box()
     scene, lights = build_scene(loaded)
     w, h = 24, 16
@@ -104,17 +156,10 @@ def test_megakernel_chunked_fori_matches_unrolled(monkeypatch):
     kw = dict(spp=4, seed=1, max_depth=4, nee=True, mis=True, interpret=True)
     rad_u, segs_u = mk.render_mega(mega_u, cam, w, h, **kw)
 
-    def nocull(mega):
-        c = mega.tri.shape[0] // mk.CHUNK_TRIS
-        big = np.zeros((c, 8), np.float32)
-        big[:, 0:3] = -3.0e38
-        big[:, 3:6] = 3.0e38
-        return mega._replace(cbox=jnp.asarray(big))
-
-    monkeypatch.setattr(mk, "UNROLL_MAX_TRIS", 8)
+    monkeypatch.setattr(mk, "CULL_MIN_TRIS", 8)
     mk._render_mega_jit.clear_cache()
     # 1. tier equivalence at fixed row order
-    rad_f, segs_f = mk.render_mega(nocull(mega_u), cam, w, h, **kw)
+    rad_f, segs_f = mk.render_mega(_nocull(mega_u), cam, w, h, **kw)
     np.testing.assert_allclose(np.asarray(rad_f), np.asarray(rad_u),
                                rtol=1e-4, atol=2e-5)
     assert float(segs_f) == float(segs_u)
@@ -122,7 +167,7 @@ def test_megakernel_chunked_fori_matches_unrolled(monkeypatch):
     mega_c = mk.build_megascene(scene, lights)
     assert mega_c.cbox.shape[0] == mega_c.tri.shape[0] // mk.CHUNK_TRIS
     rad_c, segs_c = mk.render_mega(mega_c, cam, w, h, **kw)
-    rad_n, segs_n = mk.render_mega(nocull(mega_c), cam, w, h, **kw)
+    rad_n, segs_n = mk.render_mega(_nocull(mega_c), cam, w, h, **kw)
     mk._render_mega_jit.clear_cache()  # don't leak the patched traces
     m = np.asarray(rad_c) / 4
     assert np.isfinite(m).all() and m.mean() > 0.001
@@ -132,13 +177,10 @@ def test_megakernel_chunked_fori_matches_unrolled(monkeypatch):
 
 @pytest.mark.slow
 def test_count_rows_instrumentation(monkeypatch):
-    """``count_rows=True`` (the honest-MFU counter for bench.py): radiance
-    and segments are bit-identical to the uninstrumented render, the row
-    count is positive, bounded by the no-cull total, and EQUAL to it when
-    culling is disabled (infinite chunk boxes ⇒ every live lane tests every
-    row)."""
-    import jax.numpy as jnp
-
+    """``count_rows=True``: radiance and segments are bit-identical to the
+    uninstrumented render, the row count is positive, bounded by the no-cull
+    total, and EQUAL to it when culling is disabled (infinite chunk boxes ⇒
+    every live lane tests every row)."""
     loaded, camcfg = cornell_box()
     scene, lights = build_scene(loaded)
     w, h = 24, 16
@@ -146,7 +188,7 @@ def test_count_rows_instrumentation(monkeypatch):
     cam = cm.make_camera(camcfg)
     kw = dict(spp=2, seed=3, max_depth=4, nee=True, mis=True, interpret=True)
 
-    monkeypatch.setattr(mk, "UNROLL_MAX_TRIS", 8)
+    monkeypatch.setattr(mk, "CULL_MIN_TRIS", 8)
     mk._render_mega_jit.clear_cache()
     mega = mk.build_megascene(scene, lights)
     rad0, segs0 = mk.render_mega(mega, cam, w, h, **kw)
@@ -159,21 +201,14 @@ def test_count_rows_instrumentation(monkeypatch):
     # culling off, plain BSDF mode (no shadow loop — its tested-row count
     # legitimately shrinks as lanes occlude mid-loop): every live closest
     # segment tests the full padded table, so the counter is EXACT
-    c = mega.tri.shape[0] // mk.CHUNK_TRIS
-    big = np.zeros((c, 8), np.float32)
-    big[:, 0:3] = -3.0e38
-    big[:, 3:6] = 3.0e38
     kw_plain = dict(kw, nee=False, mis=False)
-    nocull = mega._replace(cbox=jnp.asarray(big))
-    _, segs_n, trows_n = mk.render_mega(nocull, cam, w, h, count_rows=True,
-                                        **kw_plain)
+    _, segs_n, trows_n = mk.render_mega(_nocull(mega), cam, w, h,
+                                        count_rows=True, **kw_plain)
     _, _, trows_c = mk.render_mega(mega, cam, w, h, count_rows=True,
                                    **kw_plain)
     mk._render_mega_jit.clear_cache()
     assert float(trows_n) == float(segs_n) * mega.tri.shape[0]
-    # culling never ADDS tests; on the enclosing cbox every block overlaps
-    # every chunk box, so equality is legitimate here (the real skip rate
-    # is a bench-time measurement on veach: bench.py _rows_tested_per_seg)
+    # culling never ADDS tests
     assert float(trows_c) <= float(trows_n)
 
 
@@ -193,12 +228,10 @@ def test_regen_schedule_matches_batch():
     r_r, s_r = mk.render_mega(mega, cam, res, res, schedule="regen", **kw)
     np.testing.assert_array_equal(np.asarray(r_b), np.asarray(r_r))
     assert float(s_b) == float(s_r)
-    # and with NEE+MIS+RR (per-lane depth drives salts, MIS state, roulette).
-    # The RNG stream assignment still coincides exactly (a stream mismatch
-    # would flip whole paths, errors ~1e-1 at 8 spp), but the two schedules
-    # compile to different loop forms (data-dependent while vs fori) and the
-    # NEE arithmetic gets reassociated differently — so gate at float32
-    # round-off scale, not bit-exactness (measured max |diff| ≈ 4e-6).
+    # and with NEE+MIS+RR (per-lane depth drives salts, MIS state, roulette):
+    # the two schedules compile to different loop forms and the NEE
+    # arithmetic gets reassociated differently — so gate at float32
+    # round-off scale, not bit-exactness.
     kw2 = dict(spp=8, seed=2, max_depth=5, nee=True, mis=True, rr=True,
                rr_start=2, interpret=True)
     n_b, _ = mk.render_mega(mega, cam, res, res, schedule="batch", **kw2)

@@ -5,7 +5,7 @@ import pytest
 
 from mcpt.bvh import lbvh, metrics, treelet
 from mcpt import types as T
-from tests.test_lbvh import random_tris
+from test_lbvh import random_tris
 
 
 def _build(verts):
@@ -128,3 +128,33 @@ def test_epo_native_matches_python():
     e_py = epo(bvh, loaded.verts, use_native="never")
     e_cc = epo(bvh, loaded.verts, use_native="always")
     assert abs(e_py - e_cc) < 1e-6 * max(e_py, 1.0)
+
+
+def test_epo_jitted_walk_matches_bruteforce():
+    """The jitted EPO walk (``use_native="never"``; ``device`` picks its JAX
+    platform, the CPU here) against a direct sum over every (leaf,
+    non-ancestor node) pair, ancestors found by walking parent links."""
+    verts = random_tris(24, seed=5, scale=2.0)
+    bvh = _build(verts)
+    left = np.asarray(bvh.left)
+    parent = np.asarray(bvh.parent)
+    bbmin, bbmax = np.asarray(bvh.bbmin), np.asarray(bvh.bbmax)
+    n = verts.shape[0]
+    leaf_base = n - 1
+    tris, nodes = [], []
+    for leaf in range(leaf_base, 2 * n - 1):
+        anc, node = set(), leaf
+        while node >= 0:
+            anc.add(node)
+            node = parent[node]
+        others = [k for k in range(2 * n - 1) if k not in anc]
+        tris += [left[leaf]] * len(others)
+        nodes += others
+    nodes = np.asarray(nodes)
+    areas = metrics._clip_areas(verts[np.asarray(tris)], bbmin[nodes],
+                                bbmax[nodes])
+    w = np.where(nodes >= leaf_base, metrics.C_TRI, metrics.C_INN)
+    ref = float((w * areas).sum()) / float(metrics.tri_area(verts).sum())
+    e = metrics.epo(bvh, verts, use_native="never", device="cpu")
+    assert ref > 0.0
+    assert e == pytest.approx(ref, rel=1e-6)

@@ -9,7 +9,7 @@ from mcpt.bvh import lbvh
 from mcpt.render import traverse
 from mcpt.types import Geometry, Scene
 from mcpt import types as T
-from tests.test_lbvh import random_tris
+from test_lbvh import random_tris
 
 
 def test_moller_trumbore_basic():

@@ -1,20 +1,14 @@
 #!/usr/bin/env python
-"""Independent wavefront cross-check of the diningroom golden (run ON the TPU).
+"""Wavefront cross-check of the diningroom golden at 1024 spp.
 
-The committed diningroom golden (``tests/goldens/diningroom.exr``, 2048 spp)
-was rendered by ``render_hybrid`` itself, so tools/validate_hybrid.py's
-diningroom row is a self-consistency gate — a systematic hybrid bias would
-cancel (advisor finding, round 4).  This script renders the same crop through
-the **wavefront integrator** (``mcpt.render.integrator.render`` with
-``method="bvh"`` — an XLA stack-walk intersector + per-bounce host loop that
-shares no kernel, RNG stream, sort, or compaction code with the hybrid
-engine) and gates the rel-RMSE against the golden at the measured-noise
-level.  Agreement means the two estimators converge to the same image from
-independent implementations — the strongest cross-engine evidence we can
-produce for this scene (reference analogue: comparing the renderer's .hdr
-against the course-provided EXRs, ``Scene/README.md:19``).
-
-Recorded run: docs/VALIDATION.md §5b.
+Renders the golden's crop (``tests/goldens/diningroom.exr``, 2048 spp) through
+the wavefront integrator (``mcpt.render.integrator.render`` with
+``method="bvh"``, the XLA stack-walk intersector) and gates the rel-RMSE
+against the golden at the measured-noise level.  The golden was rendered by a
+different engine on other hardware, so agreement means two independent
+implementations converge to the same image (reference analogue: comparing the
+renderer's .hdr against the course-provided EXRs, ``Scene/README.md:19``).
+Run it on the GPU.
 """
 
 from __future__ import annotations
@@ -29,14 +23,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "goldens")
 
-# Same crop/depth as validate_hybrid's diningroom row; same noise model:
-# 1024-spp wavefront ≈ 2.7%, 2048-spp golden ≈ 1.9%, combined ≈ 3.3%
-# ⇒ gate 4.5% (×1.4 headroom).
+# Noise model: 1024-spp wavefront ≈ 2.7%, 2048-spp golden ≈ 1.9%, combined
+# ≈ 3.3% ⇒ gate 4.5% (×1.4 headroom).
 NAME, W, H, SPP, DEPTH, TOL = "diningroom", 160, 90, 1024, 8, 0.045
 
 
 def main() -> int:
-    import jax
     import numpy as np
 
     from mcpt import runtime, scenes
@@ -47,9 +39,6 @@ def main() -> int:
     from tools.compare import compare
 
     runtime.enable_compile_cache()
-    if jax.default_backend() != "tpu":
-        print("WARNING: not on TPU — this will be extremely slow",
-              file=sys.stderr)
 
     golden = im.read_exr_rgb(os.path.join(_GOLDEN_DIR, f"{NAME}.exr"))[::-1]
     loaded, camcfg = getattr(scenes, NAME)()
